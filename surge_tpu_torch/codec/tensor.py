@@ -1,0 +1,162 @@
+"""Struct-of-arrays encoding of per-aggregate event logs — a copy of the parts of
+``surge_tpu/codec/tensor.py`` the replay slice uses (``EncodedEvents``,
+``ColumnarEvents``, ``encode_events_columnar``, ``encode_states``,
+``decode_states``).
+
+``ColumnarEvents`` is the storage layout: N events across B aggregates, time-ordered
+within each aggregate, one flat array per union column. Encoding is pure NumPy on the
+host; the replay engine packs it to the wire (surge_tpu_torch.codec.wire) and moves
+it to the device itself.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Mapping, Sequence
+
+import numpy as np
+
+from surge_tpu_torch.codec.schema import SchemaRegistry, StateSchema
+
+PAD_TYPE_ID = -1
+
+
+@dataclass
+class EncodedEvents:
+    type_ids: np.ndarray  # [B, T] int32
+    cols: dict[str, np.ndarray]  # each [B, T]
+    lengths: np.ndarray  # [B] int32
+    # union columns the producer declares derivable on device instead of stored/
+    # transferred ({name: surge_tpu_torch.codec.wire.DERIVE_*}); e.g. positional sequence
+    # numbers ({"sequence_number": "ordinal"})
+    derived_cols: dict[str, str] = field(default_factory=dict)
+
+    @property
+    def batch_size(self) -> int:
+        return int(self.type_ids.shape[0])
+
+    @property
+    def max_len(self) -> int:
+        return int(self.type_ids.shape[1])
+
+    def mask(self) -> np.ndarray:
+        """bool [B, T]: True where a real event exists."""
+        return self.type_ids != PAD_TYPE_ID
+
+    def nbytes(self) -> int:
+        return self.type_ids.nbytes + self.lengths.nbytes + sum(c.nbytes for c in self.cols.values())
+
+
+@dataclass
+class ColumnarEvents:
+    """Flat struct-of-arrays event log: N events across B aggregates, time-ordered
+    within each aggregate. This is the *storage* layout (log segments are columnar so
+    bulk replay never touches Python objects — SURVEY.md §7 hard-part "host-side
+    encode"); :func:`columnar_to_batch` scatters it into the padded ``[B, T]`` batch
+    with pure vectorized NumPy.
+
+    - ``agg_idx``: int32 ``[N]`` — which aggregate (dense 0..B-1) each event belongs to.
+    - ``type_ids``: int32 ``[N]``.
+    - ``cols``: dict of ``[N]`` arrays (union columns; zero where a type lacks a field).
+    """
+
+    num_aggregates: int
+    agg_idx: np.ndarray
+    type_ids: np.ndarray
+    cols: dict[str, np.ndarray]
+    # columns the device derives instead of reading (see EncodedEvents.derived_cols)
+    derived_cols: dict[str, str] = field(default_factory=dict)
+    # optional aggregate-id strings, indexed by aggregate index 0..B-1 — carried by
+    # segment chunks so bulk replay can write folded states back to the keyed store
+    aggregate_ids: list[str] | None = None
+    # global chunk ordinal within the source segment file (set by read_segment;
+    # chunks are immutable once written, so this is a stable O(1) identity for
+    # caches keyed per chunk)
+    source_ordinal: int | None = None
+
+    @property
+    def num_events(self) -> int:
+        return int(self.type_ids.shape[0])
+
+    def nbytes(self) -> int:
+        return (self.agg_idx.nbytes + self.type_ids.nbytes
+                + sum(c.nbytes for c in self.cols.values()))
+
+    def sorted_by_aggregate(self) -> "ColumnarEvents":
+        """Events grouped by aggregate (stable: per-aggregate time order preserved),
+        which makes :meth:`slice_aggregates` a contiguous O(1)-index slice."""
+        if self.agg_idx.size and np.all(np.diff(self.agg_idx) >= 0):
+            return self
+        order = np.argsort(self.agg_idx, kind="stable")
+        return ColumnarEvents(
+            num_aggregates=self.num_aggregates, agg_idx=self.agg_idx[order],
+            type_ids=self.type_ids[order],
+            cols={k: v[order] for k, v in self.cols.items()},
+            derived_cols=dict(self.derived_cols),
+            aggregate_ids=self.aggregate_ids)
+
+
+def encode_events_columnar(registry: SchemaRegistry,
+                           event_logs: Sequence[Sequence[Any]]) -> ColumnarEvents:
+    """Flatten object logs into the columnar layout. Groups the per-event Python work
+    by event type so each field extracts in one comprehension per (type, field) rather
+    than a nested per-event/per-field loop."""
+    union = registry.union_columns()
+    flat: list[Any] = []
+    agg_idx_parts: list[np.ndarray] = []
+    for i, log in enumerate(event_logs):
+        flat.extend(log)
+        agg_idx_parts.append(np.full(len(log), i, dtype=np.int32))
+    n = len(flat)
+    agg_idx = (np.concatenate(agg_idx_parts) if agg_idx_parts
+               else np.zeros(0, dtype=np.int32))
+
+    type_ids = np.empty(n, dtype=np.int32)
+    by_type: dict[type, list[int]] = {}
+    for k, ev in enumerate(flat):
+        by_type.setdefault(type(ev), []).append(k)
+    cols = {f.name: np.zeros(n, dtype=f.dtype) for f in union}
+    for cls, idxs in by_type.items():
+        schema = registry.schema_for_cls(cls)
+        ii = np.asarray(idxs, dtype=np.int64)
+        type_ids[ii] = schema.type_id
+        getter = schema.getter
+        for f in schema.fields:
+            name = f.name
+            cols[name][ii] = [getter(flat[k], name) for k in idxs]
+    return ColumnarEvents(num_aggregates=len(event_logs), agg_idx=agg_idx,
+                          type_ids=type_ids, cols=cols)
+
+
+_EXCLUDED_DEFAULTS = {str: "", int: 0, float: 0.0, bool: False}
+
+
+def _construct(cls: type, kwargs: dict[str, Any]) -> Any:
+    """Build a dataclass instance, filling fields excluded from the tensor schema
+    (e.g. aggregate-id strings) with neutral defaults."""
+    import dataclasses
+
+    for f in dataclasses.fields(cls):
+        if f.name in kwargs:
+            continue
+        if f.default is not dataclasses.MISSING or f.default_factory is not dataclasses.MISSING:  # type: ignore[misc]
+            continue
+        ann = f.type if isinstance(f.type, type) else {"str": str, "int": int,
+                                                       "float": float, "bool": bool}.get(str(f.type))
+        kwargs[f.name] = _EXCLUDED_DEFAULTS.get(ann, None)
+    return cls(**kwargs)
+
+
+def encode_states(schema: StateSchema, states: Sequence[Any]) -> dict[str, np.ndarray]:
+    """Batch scalar states into the dict-of-arrays carry pytree ``{name: [B]}``."""
+    out: dict[str, np.ndarray] = {}
+    for f in schema.fields:
+        out[f.name] = np.asarray([getattr(s, f.name) for s in states], dtype=f.dtype)
+    return out
+
+
+def decode_states(schema: StateSchema, tree: Mapping[str, np.ndarray]) -> list[Any]:
+    """Inverse of :func:`encode_states`."""
+    arrays = {f.name: np.asarray(tree[f.name]) for f in schema.fields}
+    b = len(next(iter(arrays.values()))) if arrays else 0
+    return [schema.from_record({n: a[i] for n, a in arrays.items()}) for i in range(b)]

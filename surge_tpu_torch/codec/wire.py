@@ -1,0 +1,242 @@
+"""Bit-packed wire format for event windows — the pack side copied from
+``surge_tpu/codec/wire.py``, the device side rewritten in torch.
+
+- The **type discriminant** and every union column with a declared ``FieldSpec.bits``
+  width are packed into one little-endian word of ``ceil(total_bits/8)`` bytes per
+  event. The Counter fixture's events — type (3 bits incl. padding sentinel) +
+  increment_by (2) + decrement_by (2) — fit in **one byte per event**.
+- Columns without ``bits`` ride as full-width **side** arrays (floats, wide ints).
+- **Derived columns** never cross the wire: a producer that declares a column
+  positional (``derived_cols={"sequence_number": "ordinal"}``) lets the device
+  recompute it as ``base + time_index + 1``.
+
+Packing is vectorized NumPy. Unpacking is torch on the tensors' own device. Torch
+has no right shift for ``uint32``, so a packed word travels as an ``int32`` tensor
+holding the u32 bit pattern, and decode widens it to int64 and masks explicitly.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from surge_tpu_torch.codec.schema import FieldSpec, SchemaRegistry
+
+#: derivation kinds a producer may declare for a column
+DERIVE_ORDINAL = "ordinal"
+
+_MAX_PACKED_BITS = 32  # one uint32 word per event; wider layouts spill to side columns
+
+
+@dataclass(frozen=True)
+class _PackedField:
+    name: str
+    dtype: np.dtype
+    bits: int
+    shift: int
+
+    @property
+    def mask(self) -> int:
+        return (1 << self.bits) - 1
+
+
+class WireFormat:
+    """Pack/unpack schedule for one (registry, derived-columns) pair."""
+
+    def __init__(self, registry: SchemaRegistry,
+                 derived: Mapping[str, str] | None = None) -> None:
+        self.registry = registry
+        self.derived = dict(derived or {})
+        for name, kind in self.derived.items():
+            if kind != DERIVE_ORDINAL:
+                raise ValueError(f"unknown derivation {kind!r} for column {name!r}")
+
+        num_types = registry.num_event_types
+        self.num_types = num_types
+        self.type_bits = max(int(num_types).bit_length(), 1)  # +1 value: pad sentinel
+        self.pad_code = num_types
+
+        shift = self.type_bits
+        packed: list[_PackedField] = []
+        side: list[FieldSpec] = []
+        self.derived_fields: list[FieldSpec] = []
+        for f in registry.union_columns():
+            if f.name in self.derived:
+                self.derived_fields.append(f)
+            elif f.bits is not None and shift + f.bits <= _MAX_PACKED_BITS:
+                packed.append(_PackedField(f.name, f.dtype, f.bits, shift))
+                shift += f.bits
+            else:
+                side.append(f)
+        self.packed_fields = tuple(packed)
+        self.side_fields = tuple(side)
+        self.total_bits = shift
+        self.nbytes = (shift + 7) // 8
+        # the byte pattern a padding slot must decode to: pad_code in the type bits,
+        # zeros elsewhere
+        self.pad_bytes = tuple((self.pad_code >> (8 * k)) & 0xFF
+                               for k in range(self.nbytes))
+
+    def wire_bytes_per_event(self) -> int:
+        """Transfer cost per event slot (packed word + side columns)."""
+        return self.nbytes + sum(f.dtype.itemsize for f in self.side_fields)
+
+    def layout_fingerprint(self) -> dict:
+        """A JSON-round-trippable description of the exact bit/byte layout.
+
+        Persisted next to packed corpora (ResidentWire meta) so a consuming
+        engine whose schema evolved — field widths, order, type count — is
+        refused instead of decoding misaligned bits into silently-wrong
+        states. Two schemas that pack to the same byte count but different bit
+        positions produce different fingerprints."""
+        return {
+            "num_types": self.num_types,
+            "type_bits": self.type_bits,
+            "nbytes": self.nbytes,
+            "packed": [[pf.name, str(np.dtype(pf.dtype)), pf.bits, pf.shift]
+                       for pf in self.packed_fields],
+            "side": [[f.name, str(np.dtype(f.dtype))]
+                     for f in self.side_fields],
+            "derived": sorted([k, v] for k, v in self.derived.items()),
+        }
+
+    # -- host side ----------------------------------------------------------------------
+
+    def pack_window(self, type_ids: np.ndarray, cols: Mapping[str, np.ndarray],
+                    start: int, stop: int, chunk: int, bs: int
+                    ) -> tuple[np.ndarray, dict[str, np.ndarray]]:
+        """Pack the time window ``[:, start:stop)`` of a batch-major ``[b, T]`` layout
+        into time-major device-ready buffers padded to ``[chunk, bs]``.
+
+        Returns ``(packed uint8 [chunk, bs, nbytes], side {name: [chunk, bs]})``.
+        Fresh buffers every call (donation-safe). Padding slots decode to the pad
+        sentinel. Raises if a packed field's value overflows its declared bits.
+        """
+        b = type_ids.shape[0]
+        width = stop - start
+        word = self._pack_words(type_ids[:, start:stop],
+                                {pf.name: cols[pf.name][:, start:stop]
+                                 for pf in self.packed_fields})
+
+        packed = np.empty((chunk, bs, self.nbytes), dtype=np.uint8)
+        for k in range(self.nbytes):
+            packed[..., k] = self.pad_bytes[k]
+            packed[:width, :b, k] = ((word >> np.asarray(8 * k, dtype=word.dtype))
+                                     & np.asarray(0xFF, dtype=word.dtype)).T
+
+        side: dict[str, np.ndarray] = {}
+        for f in self.side_fields:
+            buf = np.zeros((chunk, bs), dtype=f.dtype)
+            buf[:width, :b] = cols[f.name][:, start:stop].T
+            side[f.name] = buf
+        return packed, side
+
+    def _pack_words(self, type_ids: np.ndarray,
+                    cols: Mapping[str, np.ndarray]) -> np.ndarray:
+        """The shared word-build: out-of-range ids — padding (-1) or corrupt
+        positive values — pack as the pad sentinel so they carry state through
+        (the same contract make_step_fn keeps for the unpacked path); a corrupt
+        id must never spill into field bits. Dtype-preserving range checks
+        catch negatives and any value past each declared width."""
+        # narrowest word dtype that holds every packed bit: at bench scale the
+        # build streams N×4-byte intermediates per field, so a 1-byte wire
+        # (counter) building in uint8 moves a quarter of the memory
+        wdtype = (np.uint8 if self.nbytes == 1
+                  else np.uint16 if self.nbytes == 2 else np.uint32)
+        tid = np.asarray(type_ids)
+        word = np.where((tid < 0) | (tid >= self.num_types),
+                        self.pad_code, tid).astype(wdtype)
+        for pf in self.packed_fields:
+            col = np.asarray(cols[pf.name])
+            if col.size and ((col < 0) | (col > pf.mask)).any():
+                raise ValueError(
+                    f"column {pf.name!r} overflows its declared {pf.bits}-bit "
+                    f"wire width (max value {int(col.max())}, "
+                    f"min {int(col.min())})")
+            word |= (col.astype(wdtype)
+                     << np.asarray(pf.shift, dtype=wdtype))
+        return word
+
+    def pack_flat(self, type_ids: np.ndarray, cols: Mapping[str, np.ndarray]
+                  ) -> tuple[np.ndarray, dict[str, np.ndarray]]:
+        """Pack a FLAT event stream ``[N]`` into ``(packed uint8 [N, nbytes],
+        side {name: [N]})`` — the resident-corpus wire form: exactly
+        ``wire_bytes_per_event()`` per real event, no window padding at all.
+        The device slices per-aggregate slabs from it (see
+        :meth:`decode_words`)."""
+        word = self._pack_words(type_ids,
+                                {pf.name: cols[pf.name]
+                                 for pf in self.packed_fields})
+        n = word.shape[0]
+        packed = np.empty((n, self.nbytes), dtype=np.uint8)
+        for k in range(self.nbytes):
+            packed[:, k] = ((word >> np.asarray(8 * k, dtype=word.dtype))
+                            & np.asarray(0xFF, dtype=word.dtype))
+        side = {f.name: np.ascontiguousarray(cols[f.name], dtype=f.dtype)
+                for f in self.side_fields}
+        return packed, side
+
+    # -- device side ----------------------------------------------------------------------
+
+    def expand_flat(self, packed: torch.Tensor) -> torch.Tensor:
+        """Expand flat packed bytes u8 ``[N, nbytes]`` to the u32 words ``[N]``
+        (little-endian), as int32 bit patterns."""
+        word = packed[:, 0].to(torch.int64)
+        for k in range(1, self.nbytes):
+            word = word | (packed[:, k].to(torch.int64) << (8 * k))
+        return word.to(torch.int32)
+
+    def decode_words(self, word: torch.Tensor, side_row: Mapping[str, torch.Tensor],
+                     valid: torch.Tensor, ord_base: torch.Tensor, t: Any
+                     ) -> dict[str, torch.Tensor]:
+        """Decode one step's words (int32 bit patterns of the u32 words): slots
+        with ``valid`` false and type ids at or above ``num_types`` decode to the
+        pad sentinel -1, and the derived ordinal is ``ord_base + t + 1`` in int32."""
+        w = word.to(torch.int64) & 0xFFFFFFFF
+        tid = (w & ((1 << self.type_bits) - 1)).to(torch.int32)
+        tid = torch.where(tid >= self.num_types, -1, tid)
+        events: dict[str, torch.Tensor] = {
+            "type_id": torch.where(valid, tid, -1)}
+        for pf in self.packed_fields:
+            raw = (w >> pf.shift) & pf.mask
+            events[pf.name] = raw.to(torch_dtype(pf.dtype))
+        for f in self.side_fields:
+            events[f.name] = side_row[f.name]
+        for f in self.derived_fields:
+            ordinal = ord_base.to(torch.int32) + t + 1
+            events[f.name] = ordinal.to(torch_dtype(f.dtype))
+        return events
+
+    def decode(self, packed: torch.Tensor, side: Mapping[str, torch.Tensor],
+               ord_base: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Unpack a window u8 ``[chunk, B, nbytes]`` (+ side columns, + ordinal base
+        ``[B]``) into the events dict the fold consumes: ``type_id`` int32
+        (padding → -1) and each field at its schema dtype; the derived ordinal of
+        time row ``t`` is ``ord_base[b] + t + 1``."""
+        chunk = packed.shape[0]
+        word = packed[..., 0].to(torch.int64)
+        for k in range(1, self.nbytes):
+            word = word | (packed[..., k].to(torch.int64) << (8 * k))
+        t_idx = torch.arange(chunk, dtype=torch.int32, device=packed.device)[:, None]
+        valid = torch.ones(word.shape, dtype=torch.bool, device=packed.device)
+        return self.decode_words(word.to(torch.int32), side, valid,
+                                 ord_base[None, :], t_idx)
+
+
+_TORCH_DTYPES = {
+    np.dtype(np.bool_): torch.bool,
+    np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.int16): torch.int16,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.int64): torch.int64,
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.float64): torch.float64,
+}
+
+
+def torch_dtype(dtype: Any) -> torch.dtype:
+    """The torch dtype of a schema (numpy) dtype."""
+    return _TORCH_DTYPES[np.dtype(dtype)]

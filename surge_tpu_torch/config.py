@@ -1,0 +1,117 @@
+"""Layered key/value config with env overrides — the replay slice's copy of
+``surge_tpu/config/__init__.py`` (``Config``, ``default_config``).
+
+Keys are dotted strings (``surge.replay.batch-size``). Resolution order:
+explicit overrides > environment (``SURGE_REPLAY_BATCH_SIZE``) > defaults. The
+``surge.replay.*`` keys below carry the reference's exact defaults, so one
+override dict drives both packages the same way.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+from typing import Any, Mapping
+
+
+def _env_key(key: str) -> str:
+    return key.upper().replace(".", "_").replace("-", "_")
+
+
+#: the ``surge.replay.*`` keys the resident replay path reads, with the
+#: reference's defaults (surge_tpu/config/__init__.py)
+DEFAULTS: dict[str, Any] = {
+    "surge.replay.batch-size": 8192,  # aggregates per device step
+    "surge.replay.time-chunk": 512,  # events scanned per tile
+    # tail windows shrink through a power-of-two ladder down to this width
+    "surge.replay.min-time-window": 8,
+    # device-memory budget for one tile's [batch, width] slab (plus its
+    # transpose); bounds the tile width of long-log corpora
+    "surge.replay.resident-slab-cap-mb": 512,
+    # order aggregates by log length (descending) when packing the wire
+    "surge.replay.sort-by-length": True,
+    # plain-scan step dispatch: "switch" applies each handler to the lanes
+    # that carry its type, "select" runs every handler and mask-combines
+    "surge.replay.dispatch": "switch",  # switch | select
+    # tile fold: "pallas" is the hand-written kernel (K1), "xla" the plain
+    # torch scan, "auto" the kernel on CUDA and the plain scan on the CPU
+    "surge.replay.tile-backend": "auto",  # auto | xla | pallas | assoc
+    # resident tile layout: "dense" pre-gathers every tile once per corpus
+    # when the buffers fit dense-cap-mb of device memory; "flat" gathers
+    # per pass
+    "surge.replay.resident-layout": "auto",  # auto | flat | dense
+    "surge.replay.dense-cap-mb": 2048,
+    # pad resident buffers to power-of-two lengths ("pow2") or keep exact
+    # lengths ("exact")
+    "surge.replay.resident-len-bucket": "pow2",  # pow2 | exact
+}
+
+
+@dataclass
+class Config:
+    """Layered config: overrides > env > DEFAULTS."""
+
+    overrides: dict[str, Any] = field(default_factory=dict)
+    defaults: Mapping[str, Any] = field(default_factory=lambda: DEFAULTS)
+
+    def get(self, key: str, fallback: Any = None) -> Any:
+        if key in self.overrides:
+            return self.overrides[key]
+        env = os.environ.get(_env_key(key))
+        if env is not None:
+            return _coerce(env, self.defaults.get(key, fallback))
+        if key in self.defaults:
+            return self.defaults[key]
+        return fallback
+
+    def get_int(self, key: str, fallback: int = 0) -> int:
+        return int(self.get(key, fallback))
+
+    def get_bool(self, key: str, fallback: bool = False) -> bool:
+        v = self.get(key, fallback)
+        if isinstance(v, str):
+            return v.strip().lower() in ("1", "true", "yes", "on")
+        return bool(v)
+
+    def get_str(self, key: str, fallback: str = "") -> str:
+        return str(self.get(key, fallback))
+
+    def get_int_list(self, key: str, fallback: str = "") -> list[int]:
+        raw = self.get_str(key, fallback)
+        return [int(p) for p in raw.split(",") if p.strip()]
+
+    def with_overrides(self, overrides: Mapping[str, Any] | None = None,
+                       **kv: Any) -> "Config":
+        """Layer overrides on top. Dotted keys go in ``overrides``; keyword args
+        use underscore form (``surge_replay_time_chunk``) and are canonicalized
+        against the known default keys."""
+        merged = dict(self.overrides)
+        merged.update(overrides or {})
+        canonical = {_env_key(k): k for k in self.defaults}
+        for k, v in kv.items():
+            merged[canonical.get(_env_key(k), k)] = v
+        return Config(overrides=merged, defaults=self.defaults)
+
+
+def _coerce(env_value: str, exemplar: Any) -> Any:
+    """Coerce an env-var string to the type of the default it overrides."""
+    if isinstance(exemplar, bool):
+        return env_value.strip().lower() in ("1", "true", "yes", "on")
+    if isinstance(exemplar, int):
+        try:
+            return int(env_value)
+        except ValueError:
+            return env_value
+    if isinstance(exemplar, float):
+        try:
+            return float(env_value)
+        except ValueError:
+            return env_value
+    return env_value
+
+
+_DEFAULT = Config()
+
+
+def default_config() -> Config:
+    return _DEFAULT

@@ -1,0 +1,59 @@
+"""The replay contract of a model family — the counterpart of ``ReplayHandlers`` and
+``ReplaySpec`` in ``surge_tpu/engine/model.py``.
+
+Handlers are torch functions over lane batches: ``handler(state {field: [B]},
+fields {column: [B]}) -> {field: value}``. A handler may return a partial dict
+(missing fields carry through) and 0-dim values or Python scalars (broadcast over
+the batch); the step function pins every result to the schema dtype.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Mapping, Optional
+
+import numpy as np
+
+from surge_tpu_torch.codec.schema import SchemaRegistry
+
+StateTree = Dict[str, Any]
+TorchEventHandler = Callable[[StateTree, Mapping[str, Any]], StateTree]
+
+
+@dataclass(frozen=True)
+class ReplayHandlers:
+    """Per-event-type torch step functions keyed by the registry's type_ids."""
+
+    by_type_id: Mapping[int, TorchEventHandler]
+
+    def ordered(self, num_types: int) -> list[TorchEventHandler]:
+        """Dense handler table indexed by type id; missing ids get identity."""
+        identity: TorchEventHandler = lambda state, fields: state
+        return [self.by_type_id.get(tid, identity) for tid in range(num_types)]
+
+
+@dataclass
+class ReplaySpec:
+    """Everything the replay engine needs to batch-fold one model family.
+
+    - ``registry``: event/state tensor schemas (surge_tpu_torch.codec.schema).
+    - ``handlers``: the torch form of ``handle_event``, split per event type.
+    - ``init_record``: column values of the "empty" state (the ``None`` aggregate).
+    - ``kernel_step``: the name of the model's step in the hand-written tile-scan
+      kernel (``surge_tpu_torch/csrc/tile_scan.cu``), e.g. ``"counter"``; None
+      for a model the kernel does not carry, which then folds only through the
+      plain scan (``surge.replay.tile-backend = xla``).
+    """
+
+    registry: SchemaRegistry
+    handlers: ReplayHandlers
+    init_record: Dict[str, Any] = field(default_factory=dict)
+    kernel_step: Optional[str] = None
+
+    def init_state_tree(self) -> StateTree:
+        """Scalar init record with schema-complete columns (missing fields → 0)."""
+        out: StateTree = {}
+        for f in self.registry.state.fields:
+            v = self.init_record.get(f.name, 0)
+            out[f.name] = np.asarray(v, dtype=f.dtype)
+        return out

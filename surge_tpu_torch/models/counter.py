@@ -1,0 +1,86 @@
+"""Counter bounded context, replay half — the counterpart of the tensor path of
+``surge_tpu/models/counter.py``: the ``State`` and event dataclasses,
+``make_registry`` (same wire bit widths, so an event packs into one byte when
+``sequence_number`` is derived) and ``make_replay_spec`` with torch handlers.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from surge_tpu_torch.codec.schema import SchemaRegistry
+from surge_tpu_torch.engine.model import ReplayHandlers, ReplaySpec
+
+
+@dataclass(frozen=True)
+class State:
+    aggregate_id: str
+    count: int
+    version: int
+
+
+@dataclass(frozen=True)
+class CountIncremented:
+    aggregate_id: str
+    increment_by: int
+    sequence_number: int
+
+
+@dataclass(frozen=True)
+class CountDecremented:
+    aggregate_id: str
+    decrement_by: int
+    sequence_number: int
+
+
+@dataclass(frozen=True)
+class NoOpEvent:
+    aggregate_id: str
+    sequence_number: int
+
+
+@dataclass(frozen=True)
+class UnserializableEvent:
+    aggregate_id: str
+    sequence_number: int
+    error_msg: str
+
+
+INCREMENTED, DECREMENTED, NOOP, UNSERIALIZABLE = 0, 1, 2, 3
+
+
+def make_registry() -> SchemaRegistry:
+    """Tensor-path event subset: every event the reference fold handles without
+    raising. Increment/decrement deltas are 0..3, so with the 3-bit type
+    discriminant a whole event packs into ONE wire byte when sequence_number is
+    producer-derived (surge_tpu_torch.codec.wire)."""
+    reg = SchemaRegistry()
+    reg.register_event(CountIncremented, type_id=INCREMENTED, exclude=("aggregate_id",),
+                       bits={"increment_by": 2})
+    reg.register_event(CountDecremented, type_id=DECREMENTED, exclude=("aggregate_id",),
+                       bits={"decrement_by": 2})
+    reg.register_event(NoOpEvent, type_id=NOOP, exclude=("aggregate_id",))
+    reg.register_event(UnserializableEvent, type_id=UNSERIALIZABLE,
+                       exclude=("aggregate_id", "error_msg"))
+    reg.register_state(State, exclude=("aggregate_id",))
+    return reg
+
+
+def make_replay_spec() -> ReplaySpec:
+    def incremented(s, f):
+        return {"count": s["count"] + f["increment_by"], "version": f["sequence_number"]}
+
+    def decremented(s, f):
+        return {"count": s["count"] - f["decrement_by"], "version": f["sequence_number"]}
+
+    def unserializable(s, f):
+        # reference: version bumps to sequenceNumber, count unchanged
+        return {"version": f["sequence_number"]}
+
+    return ReplaySpec(
+        registry=make_registry(),
+        handlers=ReplayHandlers({INCREMENTED: incremented, DECREMENTED: decremented,
+                                 UNSERIALIZABLE: unserializable}),
+        init_record={"count": 0, "version": 0},
+        kernel_step="counter",
+    )

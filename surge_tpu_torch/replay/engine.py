@@ -1,0 +1,910 @@
+"""Batched replay on the device — the resident path of
+``surge_tpu/replay/engine.py`` in torch.
+
+The counterpart of each reference function keeps its name:
+
+- :func:`make_step_fn` / :func:`make_batch_fold`: the one-event step over a lane
+  batch (``switch`` or ``select`` dispatch) and the plain time scan over it.
+- :func:`_make_fold_body`, :func:`_make_tile`, :func:`_make_tile_dense`,
+  :func:`_make_densify`: the tile programs. A tile folds events
+  ``[t_base, t_base + width)`` of lanes ``[i0, i0 + bs)``, through the plain
+  torch scan (``tile-backend = xla``) or kernel K1
+  (``surge_tpu_torch.replay.fold_kernels.tile_scan``, ``tile-backend = pallas``).
+- :class:`ReplayEngine`: ``pack_resident`` → ``upload_resident`` →
+  ``warm_resident`` → ``replay_resident``, the cold-replay main path.
+
+Where the reference ran one ``fori_loop`` over a device-resident work list,
+this runs a Python loop over the plan's real tiles, writing each tile's carry
+into the state slab in place. A caller's ``init_carry`` is copied, never
+written to.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field as dc_field
+from typing import Any, Callable, Mapping, Optional
+
+import numpy as np
+import torch
+
+from surge_tpu_torch.codec.tensor import ColumnarEvents
+from surge_tpu_torch.codec.wire import WireFormat, torch_dtype
+from surge_tpu_torch.config import Config, default_config
+from surge_tpu_torch.engine.model import ReplaySpec, StateTree
+from surge_tpu_torch.replay import fold_kernels
+
+
+def make_step_fn(spec: ReplaySpec, dispatch: str = "switch"
+                 ) -> Callable[[StateTree, Mapping[str, Any]], StateTree]:
+    """One-event step over a lane batch: dispatch on type_id, mask padding.
+
+    Any type_id outside ``[0, num_types)`` — padding (-1) or corrupt positive
+    ids — carries state through unchanged. ``dispatch`` picks the lowering:
+
+    - ``"switch"``: each handler runs on the lanes whose (clipped, real) type
+      id selects it, and its results scatter back to those lanes.
+    - ``"select"``: branchless — every handler runs on every lane and the
+      results mask-combine with ``where``.
+    """
+    num_types = spec.registry.num_event_types
+    handlers = spec.handlers.ordered(num_types)
+    state_fields = spec.registry.state.field_names
+
+    def normalize(new: StateTree, old: StateTree) -> StateTree:
+        # handlers may return partial dicts and scalars; missing columns carry
+        # through, and dtypes are pinned to the schema (the carry's dtypes)
+        out = {}
+        for name in state_fields:
+            ref = old[name]
+            v = torch.as_tensor(new.get(name, ref), device=ref.device).to(ref.dtype)
+            out[name] = v if v.shape == ref.shape else v.expand(ref.shape)
+        return out
+
+    if dispatch == "select":
+        def step(state: StateTree, event: Mapping[str, Any]) -> StateTree:
+            tid = event["type_id"]
+            fields = {k: v for k, v in event.items() if k != "type_id"}
+            out = state
+            for t, h in enumerate(handlers):
+                new = normalize(h(state, fields), state)
+                hit = tid == t
+                out = {k: torch.where(hit, new[k], out[k]) for k in out}
+            return out
+
+        return step
+    if dispatch != "switch":
+        raise ValueError(f"unknown dispatch {dispatch!r} (switch|select)")
+
+    def step(state: StateTree, event: Mapping[str, Any]) -> StateTree:
+        tid = event["type_id"]
+        branch = tid.clamp(0, num_types - 1)
+        is_real = (tid >= 0) & (tid < num_types)
+        fields = {k: v for k, v in event.items() if k != "type_id"}
+        out = {k: v.clone() for k, v in state.items()}
+        for t, h in enumerate(handlers):
+            idx = torch.nonzero(is_real & (branch == t)).squeeze(1)
+            sub = {k: v[idx] for k, v in state.items()}
+            new = normalize(h(sub, {k: v[idx] for k, v in fields.items()}), sub)
+            for k in out:
+                out[k][idx] = new[k]
+        return out
+
+    return step
+
+
+def make_batch_fold(spec: ReplaySpec, *, dispatch: str = "switch"):
+    """Batched fold: ``(carry {name: [B]}, events {col: [T, B]}) -> carry`` — the
+    plain time scan of the step over the lane batch."""
+    step = make_step_fn(spec, dispatch)
+
+    def fold(carry: StateTree, events: Mapping[str, torch.Tensor]) -> StateTree:
+        steps = next(iter(events.values())).shape[0] if events else 0
+        for t in range(steps):
+            carry = step(carry, {k: v[t] for k, v in events.items()})
+        return carry
+
+    return fold
+
+
+@dataclass
+class ResidentCorpus:
+    """A corpus uploaded once to the device for gather-based replay."""
+
+    derived_key: dict
+    flat_wire: torch.Tensor  # packed u8 [N, nbytes] on device
+    flat_side: dict  # {name: [N]} on device
+    starts: np.ndarray  # i32 [B] (length-sorted order, host copy for planning)
+    lengths: np.ndarray  # i32 [B]
+    perm: Optional[np.ndarray]  # sorted-rank -> original index (None = identity)
+    starts_dev: torch.Tensor  # i32 [b_pad] on device
+    lens_dev: torch.Tensor  # i32 [b_pad] on device
+    b_pad: int  # lane count padded to the dispatch batch
+    num_events: int
+    wire_bytes: int  # bytes actually shipped to the device
+    upload_s: float
+    #: per-corpus caches (tile plan, dense tile buffers, inverse permutation),
+    #: populated lazily by the engine, keyed by plan geometry
+    cache: dict = dc_field(default_factory=dict)
+
+
+#: minimum guard rows appended past the wire corpus, so a wire packed under a
+#: small tile-width cap still satisfies engines configured with a larger one
+_WIRE_GUARD_MIN = 8192
+
+#: t_base sentinel of the reference's dense work-list padding: past every real
+#: lane length yet far from int32 overflow. This engine loops over real tiles
+#: only, but the kernel branch of the fold body keeps the reference's clamp of
+#: t_base before the ordinal add (see _make_fold_body).
+_NOOP_TILE_T = np.int32(1 << 29)
+
+
+def _make_fold_body(spec: ReplaySpec, wire: WireFormat, width: int,
+                    dispatch: str, tile_backend: str):
+    """The tile-interior fold shared by the flat-gather and dense-layout
+    resident tiles: ``(carry {f: [bs]}, words [width, bs], sides {n: [width, bs]},
+    lens [bs], ord_base [bs], t_base) -> carry``. Two lowerings: the plain
+    torch time scan (``xla``) and kernel K1 (``pallas``)."""
+    step = make_step_fn(spec, dispatch)
+
+    def fold_body(carry, words, sides, lens, ord_base, t_base: int):
+        if tile_backend == "pallas":
+            # relative time. t_base is clamped before the ordinal add, as in
+            # the reference: a _NOOP_TILE_T sentinel would otherwise push
+            # ord_base + t_base past 2^30; real tiles always have
+            # t_base < max lane length << 2^29, where the clamp is the identity
+            t_ord = min(t_base, int(_NOOP_TILE_T) - 1)
+            return fold_kernels.tile_scan(carry, words, sides, lens - t_base,
+                                          ord_base + t_ord, spec=spec, wire=wire)
+        for t in range(width):
+            tt = t_base + t
+            events = wire.decode_words(words[t], {n: s[t] for n, s in sides.items()},
+                                       tt < lens, ord_base, tt)
+            carry = step(carry, events)
+        return carry
+
+    return fold_body
+
+
+def _slab_index(starts: torch.Tensor, t_base: int, width: int, rows: int
+                ) -> torch.Tensor:
+    """Time-major row indices ``[width, bs]`` of each lane's slab
+    ``[starts + t_base, starts + t_base + width)``. A start past ``rows - width``
+    is clamped, exactly as ``jax.lax.dynamic_slice`` clamps it: only finished
+    or padding lanes reach that far, and their slots decode under a False
+    mask. Live lanes never clamp: their slab ends within the guard rows."""
+    s0 = (starts.to(torch.int64) + t_base).clamp_(0, rows - width)
+    return s0[None, :] + torch.arange(width, device=starts.device)[:, None]
+
+
+def _lane_range(i0: int, bs: int, b_pad: int) -> slice:
+    # a torch slice past b_pad would silently truncate where JAX clamped
+    if i0 < 0 or i0 + bs > b_pad:
+        raise ValueError(f"tile lanes [{i0}, {i0 + bs}) outside the slab [0, {b_pad})")
+    return slice(i0, i0 + bs)
+
+
+def _make_tile(spec: ReplaySpec, wire: WireFormat, width: int, bs: int,
+               dispatch: str, tile_backend: str):
+    """The flat-gather tile: ``(state_slab {f: [b_pad]}, flat_wire u8
+    [N, nbytes], side_flat, starts [b_pad], lens [b_pad], ord_base [b_pad], i0,
+    t_base)``; folds lanes ``[i0, i0 + bs)`` over ``[t_base, t_base + width)``
+    and writes their carry back into the slab in place."""
+    fold_body = _make_fold_body(spec, wire, width, dispatch, tile_backend)
+    nbytes = wire.nbytes
+
+    def tile(slab, flat_wire, side_flat, starts_all, lens_all, ord_all,
+             i0: int, t_base: int) -> None:
+        lanes = _lane_range(i0, bs, starts_all.shape[0])
+        idx = _slab_index(starts_all[lanes], t_base, width, flat_wire.shape[0])
+        words = wire.expand_flat(
+            flat_wire[idx.reshape(-1)].reshape(width * bs, nbytes)
+        ).reshape(width, bs)
+        sides = {name: arr[idx] for name, arr in side_flat.items()}
+        carry = {k: v[lanes] for k, v in slab.items()}
+        out = fold_body(carry, words, sides, lens_all[lanes], ord_all[lanes],
+                        t_base)
+        for k, v in slab.items():
+            v[lanes] = out[k]
+
+    return tile
+
+
+def _make_tile_dense(spec: ReplaySpec, wire: WireFormat, width: int, bs: int,
+                     dispatch: str, tile_backend: str):
+    """The dense-layout tile: reads tile ``k`` from the buffers
+    :func:`_make_densify` pre-gathered (``dense_words u8 [k_n, width, bs,
+    nbytes]``, ``dense_sides {n: [k_n, width, bs]}``) instead of gathering
+    per-lane rows from the flat corpus each pass."""
+    fold_body = _make_fold_body(spec, wire, width, dispatch, tile_backend)
+    nbytes = wire.nbytes
+
+    def tile(slab, dense_words, dense_sides, lens_all, ord_all, i0: int,
+             t_base: int, k: int) -> None:
+        lanes = _lane_range(i0, bs, lens_all.shape[0])
+        words = wire.expand_flat(
+            dense_words[k].reshape(width * bs, nbytes)).reshape(width, bs)
+        sides = {n: arr[k] for n, arr in dense_sides.items()}
+        carry = {f: v[lanes] for f, v in slab.items()}
+        out = fold_body(carry, words, sides, lens_all[lanes], ord_all[lanes],
+                        t_base)
+        for f, v in slab.items():
+            v[lanes] = out[f]
+
+    return tile
+
+
+def _make_densify(wire: WireFormat, width: int, bs: int):
+    """One-time tile gather: ``(flat_wire u8 [N, nbytes], side_flat {n: [N]},
+    starts_all, i0s [k_n], t_bases [k_n]) -> (dense_words u8
+    [k_n, width, bs, nbytes], dense_sides {n: [k_n, width, bs]})``."""
+    nbytes = wire.nbytes
+
+    def densify(flat_wire, side_flat, starts_all, i0s, t_bases):
+        k_n = len(i0s)
+        dev = flat_wire.device
+        dw = torch.empty((k_n, width, bs, nbytes), dtype=torch.uint8, device=dev)
+        ds = {n: torch.empty((k_n, width, bs), dtype=arr.dtype, device=dev)
+              for n, arr in side_flat.items()}
+        for k, (i0, tb) in enumerate(zip(i0s.tolist(), t_bases.tolist())):
+            lanes = _lane_range(i0, bs, starts_all.shape[0])
+            idx = _slab_index(starts_all[lanes], tb, width, flat_wire.shape[0])
+            dw[k] = flat_wire[idx]
+            for n, arr in side_flat.items():
+                ds[n][k] = arr[idx]
+        return dw, ds
+
+    return densify
+
+
+def _apply_perm(perm: Optional[np.ndarray],
+                init_carry: Mapping[str, Any] | None,
+                ordinal_base: np.ndarray | None):
+    """Reorder caller inputs (original aggregate order) into the wire's
+    length-sorted lane order."""
+    init_sorted = None
+    if init_carry is not None:
+        init_sorted = {k: (np.asarray(v)[perm] if perm is not None
+                           else np.asarray(v))
+                       for k, v in init_carry.items()}
+    ord_sorted = None
+    if ordinal_base is not None:
+        src = np.asarray(ordinal_base)
+        ord_sorted = src[perm] if perm is not None else src
+    return init_sorted, ord_sorted
+
+
+def _bucket_len(n: int) -> int:
+    """Next power of two ≥ n (min 64Ki) — the bucketed buffer length."""
+    target = 1 << 16
+    while target < n:
+        target <<= 1
+    return target
+
+
+def _bucket_rows(arr: np.ndarray, pow2: bool) -> np.ndarray:
+    """Zero-pad the leading axis to the next power of two (min 64Ki rows);
+    identity when bucketing is off or already sized."""
+    if not pow2:
+        return np.ascontiguousarray(arr)
+    target = _bucket_len(arr.shape[0])
+    if target == arr.shape[0]:
+        return np.ascontiguousarray(arr)
+    pad = [(0, target - arr.shape[0])] + [(0, 0)] * (arr.ndim - 1)
+    return np.pad(arr, pad)
+
+
+#: lane counts pad to a multiple of 8 (one device; the reference multiplies by
+#: its mesh size)
+_LANE_MULTIPLE = 8
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m if m > 0 else n
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array (possibly a read-only mmap) to a device tensor."""
+    return torch.from_numpy(np.require(arr, requirements=["C", "W"])).to(device)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _resolve_device(device) -> torch.device:
+    """``None`` means the card; without one that raises (pass
+    ``device="cpu"`` to run on the host)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "ReplayEngine runs on CUDA by default and no CUDA device is "
+                "available; pass device='cpu' to run on the host")
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"ReplayEngine runs on cuda or cpu, not {dev}")
+    return dev
+
+
+@dataclass
+class ResidentWire:
+    """The host/disk wire form of a resident corpus (pure numpy, mmap-able).
+
+    Produced by :meth:`ReplayEngine.pack_resident`; consumed by
+    :meth:`ReplayEngine.upload_resident`. The saved form is the reference's
+    (``surge_tpu.replay.engine.ResidentWire``), file for file, so a wire saved
+    by either package loads in the other."""
+
+    derived_key: dict
+    packed: np.ndarray  # u8 [N+guard, nbytes]
+    side: dict  # {name: np [N+guard]}
+    starts: np.ndarray  # i32 [B] (length-sorted order)
+    lengths: np.ndarray  # i32 [B]
+    perm: Optional[np.ndarray]  # sorted-rank -> original index
+    guard: int
+    num_events: int
+    #: WireFormat.layout_fingerprint() of the packing schema; None only for
+    #: wires saved before fingerprints existed
+    layout: Optional[dict] = None
+
+    def save(self, root: str) -> None:
+        import json
+        import os
+
+        os.makedirs(root, exist_ok=True)
+        np.save(os.path.join(root, "packed.npy"), self.packed)
+        np.save(os.path.join(root, "starts.npy"), self.starts)
+        np.save(os.path.join(root, "lengths.npy"), self.lengths)
+        if self.perm is not None:
+            np.save(os.path.join(root, "perm.npy"), self.perm)
+        for name, col in self.side.items():
+            np.save(os.path.join(root, f"side_{name}.npy"), col)
+        meta = {"derived_key": self.derived_key, "guard": self.guard,
+                "num_events": self.num_events,
+                "side_names": sorted(self.side),
+                "has_perm": self.perm is not None,
+                "nbytes": int(self.packed.shape[1]),
+                "side_dtypes": {k: str(np.dtype(v.dtype))
+                                for k, v in self.side.items()},
+                "layout": self.layout}
+        with open(os.path.join(root, "wire.json"), "w") as f:
+            json.dump(meta, f)
+
+    @classmethod
+    def load(cls, root: str) -> "ResidentWire":
+        import json
+        import os
+
+        with open(os.path.join(root, "wire.json")) as f:
+            meta = json.load(f)
+        mm = lambda name: np.load(os.path.join(root, name), mmap_mode="r")  # noqa: E731
+        return cls(
+            derived_key=dict(meta["derived_key"]),
+            packed=mm("packed.npy"),
+            side={name: mm(f"side_{name}.npy") for name in meta["side_names"]},
+            starts=np.asarray(mm("starts.npy")),
+            lengths=np.asarray(mm("lengths.npy")),
+            perm=np.asarray(mm("perm.npy")) if meta["has_perm"] else None,
+            guard=int(meta["guard"]), num_events=int(meta["num_events"]),
+            layout=meta.get("layout"))
+
+
+@dataclass
+class ResidentPlan:
+    """Tile schedule for one resident replay (two lane granularities)."""
+
+    width: int
+    bs_big: int
+    bs_small: int
+    big_i0: np.ndarray  # i32 [k_big]
+    big_tb: np.ndarray  # i32 [k_big]
+    small_i0: np.ndarray  # i32 [k_small]
+    small_tb: np.ndarray  # i32 [k_small]
+
+    @property
+    def padded_slots(self) -> int:
+        return (len(self.big_i0) * self.bs_big
+                + len(self.small_i0) * self.bs_small) * self.width
+
+
+@dataclass
+class ReplayResult:
+    """Folded states + accounting for throughput metrics."""
+
+    states: dict[str, np.ndarray]  # {col: [B]} in the original aggregate order
+    num_aggregates: int
+    num_events: int
+    padded_events: int  # slots actually scanned (padding overhead indicator)
+
+
+class ReplayEngine:
+    """Drives resident replay for one model family on one device.
+
+    Parameters
+    ----------
+    spec: the model's ReplaySpec.
+    config: the ``surge.replay.*`` knobs (surge_tpu_torch.config).
+    device: where the corpus and the fold live; ``None`` is the CUDA card and
+        raises when there is none.
+    """
+
+    def __init__(self, spec: ReplaySpec, config: Config | None = None,
+                 device=None) -> None:
+        self.spec = spec
+        self.config = config or default_config()
+        self.device = _resolve_device(device)
+        self.time_chunk = self.config.get_int("surge.replay.time-chunk")
+        self.min_time_window = self.config.get_int("surge.replay.min-time-window", 8)
+        self.sort_by_length = self.config.get_bool("surge.replay.sort-by-length", True)
+        lane = _LANE_MULTIPLE
+        self.batch_size = _round_up(
+            max(self.config.get_int("surge.replay.batch-size"), lane), lane)
+        self._dispatch = self.config.get_str("surge.replay.dispatch", "switch")
+        self._tile_backend = self.config.get_str("surge.replay.tile-backend", "auto")
+        if self._tile_backend == "assoc":
+            raise NotImplementedError(
+                "surge.replay.tile-backend = assoc is not ported yet "
+                "(ROADMAP.md, Queue 1: the assoc tile backend)")
+        if self._tile_backend not in ("auto", "xla", "pallas"):
+            raise ValueError(
+                f"unknown surge.replay.tile-backend "
+                f"{self._tile_backend!r} (auto|xla|pallas|assoc)")
+        self._resident_layout = self.config.get_str(
+            "surge.replay.resident-layout", "auto")
+        if self._resident_layout not in ("auto", "flat", "dense"):
+            raise ValueError(
+                f"unknown surge.replay.resident-layout "
+                f"{self._resident_layout!r} (auto|flat|dense)")
+        self._dense_cap_mb = self.config.get_int("surge.replay.dense-cap-mb", 2048)
+        # tile programs per (derived key, width, bs, layout)
+        self._tiles: dict = {}
+        # host-side phase accounting: seconds spent packing, uploading and
+        # densifying, and tiles dispatched
+        self.stats = {"pack_s": 0.0, "h2d_s": 0.0, "windows": 0,
+                      "densify_s": 0.0}
+
+    # -- helpers ------------------------------------------------------------------------
+
+    def init_carry_np(self, batch: int) -> dict[str, np.ndarray]:
+        """Host-side initial carry columns ``{name: [batch]}``."""
+        init = self.spec.init_state_tree()
+        return {k: np.broadcast_to(np.asarray(v), (batch,)).copy()
+                for k, v in init.items()}
+
+    @property
+    def tile_backend(self) -> str:
+        """The resolved tile backend: ``auto`` is the kernel (``pallas``) on
+        CUDA and the plain scan (``xla``) on the CPU. The kernel needs the
+        spec's ``kernel_step``; without one this raises rather than run the
+        plain scan on the card."""
+        backend = self._tile_backend
+        if backend == "auto":
+            backend = "pallas" if self.device.type == "cuda" else "xla"
+        if backend == "pallas" and self.spec.kernel_step is None:
+            raise ValueError(
+                "the tile-scan kernel needs ReplaySpec.kernel_step, and this "
+                "spec has none; set surge.replay.tile-backend = xla to fold "
+                "with the plain scan")
+        return backend
+
+    # -- resident-corpus path -----------------------------------------------------------
+
+    def pack_resident(self, colev: ColumnarEvents) -> ResidentWire:
+        """Host-side half of :meth:`prepare_resident`: length-sort, flat-pack
+        and guard-pad the corpus into its device wire form (pure numpy,
+        :meth:`ResidentWire.save`-able).
+
+        An input whose events are already grouped per aggregate (``agg_idx``
+        non-decreasing) is packed in its own event order and lanes point at
+        their segments by indirection (``starts[k] = start of aggregate
+        perm[k]``); only the O(B) length argsort is paid."""
+        b = colev.num_aggregates
+        agg = np.asarray(colev.agg_idx)
+        lengths = np.bincount(agg, minlength=b).astype(np.int64)
+        if self.sort_by_length and b > 1:
+            # DESCENDING by length: the lanes still active after t events form a
+            # prefix, so each tile round dispatches a contiguous lane range
+            perm = np.argsort(-lengths, kind="stable").astype(np.int32)
+            if np.array_equal(perm, np.arange(b, dtype=np.int32)):
+                perm = None
+        else:
+            perm = None
+
+        grouped = bool((np.diff(agg) >= 0).all()) if agg.size > 1 else True
+        if grouped:
+            to_pack = colev
+        else:
+            # ungrouped input: materialize the sorted order; lanes end up
+            # buffer-contiguous
+            if perm is not None:
+                inv = np.empty_like(perm)
+                inv[perm] = np.arange(b, dtype=np.int32)
+                colev = ColumnarEvents(
+                    num_aggregates=b, agg_idx=inv[colev.agg_idx],
+                    type_ids=colev.type_ids, cols=colev.cols,
+                    derived_cols=dict(colev.derived_cols))
+                lengths = lengths[perm]
+            to_pack = colev.sorted_by_aggregate()
+
+        wire = WireFormat(self.spec.registry, dict(to_pack.derived_cols))
+        t0 = time.perf_counter()
+        packed, side_flat = wire.pack_flat(to_pack.type_ids, to_pack.cols)
+        # tail padding so every live [start + t_base, width) slab stays in
+        # bounds without clamping; content is irrelevant — slots past lens
+        # decode to the pad sentinel
+        guard = max(self.resident_tile_width(), _WIRE_GUARD_MIN)
+        packed = np.pad(packed, ((0, guard), (0, 0)))
+        side_flat = {k: np.pad(v, (0, guard)) for k, v in side_flat.items()}
+        self.stats["pack_s"] += time.perf_counter() - t0
+        # lengths/starts are in the PACKED stream's aggregate-id order; the
+        # grouped path then permutes the lane VIEW only (indirection)
+        starts = np.zeros(b + 1, dtype=np.int64)
+        np.cumsum(lengths, out=starts[1:])
+        starts_lane, lens_lane = starts[:-1], lengths
+        if grouped and perm is not None:
+            starts_lane = starts_lane[perm]
+            lens_lane = lengths[perm]
+        return ResidentWire(
+            derived_key=dict(to_pack.derived_cols), packed=packed,
+            side=side_flat, starts=starts_lane.astype(np.int32),
+            lengths=lens_lane.astype(np.int32), perm=perm, guard=guard,
+            num_events=to_pack.num_events,
+            layout=wire.layout_fingerprint())
+
+    def check_wire(self, w: ResidentWire) -> WireFormat:
+        """Validate a (possibly disk-loaded) wire against this engine: guard
+        rows cover the tile width, and the packing layout matches the engine's
+        schema bit for bit. Returns the engine's WireFormat for the wire."""
+        if w.guard < self.resident_tile_width():
+            raise ValueError(
+                f"wire guard {w.guard} is smaller than the engine's tile width "
+                f"{self.resident_tile_width()}; repack or lower "
+                "surge.replay.time-chunk")
+        wire = WireFormat(self.spec.registry, dict(w.derived_key))
+        if w.layout is not None and w.layout != wire.layout_fingerprint():
+            raise ValueError(
+                f"wire layout mismatch: corpus was packed as {w.layout}, "
+                f"engine schema packs {wire.layout_fingerprint()}; "
+                "rebuild the wire with pack_resident")
+        if wire.nbytes != w.packed.shape[1]:
+            raise ValueError(
+                f"wire layout mismatch: corpus packed {w.packed.shape[1]} "
+                f"byte(s)/event but the engine's schema packs {wire.nbytes}; "
+                "rebuild the wire with pack_resident")
+        want_sides = {f.name: np.dtype(f.dtype) for f in wire.side_fields}
+        got_sides = {k: np.dtype(v.dtype) for k, v in w.side.items()}
+        if want_sides != got_sides:
+            raise ValueError(
+                f"wire side-column mismatch: corpus has {got_sides}, engine "
+                f"schema expects {want_sides}; rebuild the wire")
+        return wire
+
+    def upload_resident(self, w: ResidentWire) -> ResidentCorpus:
+        """Device-side half of :meth:`prepare_resident`: copy a packed wire
+        (fresh or mmapped from disk) to the device and return the replay
+        handle. Buffer lengths bucket to powers of two unless
+        ``surge.replay.resident-len-bucket = exact``."""
+        self.check_wire(w)
+        b = w.lengths.shape[0]
+        t0 = time.perf_counter()
+        pow2 = self.config.get_str(
+            "surge.replay.resident-len-bucket", "pow2") == "pow2"
+        packed_b = _bucket_rows(w.packed, pow2)
+        side_b = {k: _bucket_rows(v, pow2) for k, v in w.side.items()}
+        flat_wire = _to_device(packed_b, self.device)
+        flat_side = {k: _to_device(v, self.device) for k, v in side_b.items()}
+        bs = min(self.batch_size, _round_up(max(b, 1), _LANE_MULTIPLE))
+        b_pad = _round_up(max(b, 1), bs)
+        if pow2:
+            chunks = 1
+            while chunks * bs < b_pad:
+                chunks *= 2
+            b_pad = chunks * bs
+        starts_p = np.zeros((b_pad,), dtype=np.int32)
+        starts_p[:b] = w.starts
+        lens_p = np.zeros((b_pad,), dtype=np.int32)
+        lens_p[:b] = w.lengths
+        starts_dev = _to_device(starts_p, self.device)
+        lens_dev = _to_device(lens_p, self.device)
+        _sync(self.device)
+        upload_s = time.perf_counter() - t0
+        self.stats["h2d_s"] += upload_s
+        return ResidentCorpus(
+            derived_key=dict(w.derived_key), flat_wire=flat_wire,
+            flat_side=flat_side, starts=w.starts, lengths=w.lengths, perm=w.perm,
+            starts_dev=starts_dev, lens_dev=lens_dev, b_pad=b_pad,
+            num_events=w.num_events,
+            wire_bytes=packed_b.nbytes + sum(v.nbytes for v in side_b.values()),
+            upload_s=upload_s)
+
+    def prepare_resident(self, colev: ColumnarEvents) -> ResidentCorpus:
+        """Pack and upload the whole corpus once; see :meth:`replay_resident`."""
+        return self.upload_resident(self.pack_resident(colev))
+
+    def _resident_plan(self, resident: ResidentCorpus) -> ResidentPlan:
+        """Host-side tile schedule. Tile k of a granularity folds events
+        ``[t_bases[k], t_bases[k]+width)`` of lanes ``[i0s[k], i0s[k]+bs)``.
+
+        Lanes are length-sorted descending, so the lanes still active in round
+        r form a shrinking prefix. Each round covers it with full-width
+        ``bs_big`` tiles plus narrow ``bs_small`` tiles over the remainder. A
+        lane only ever moves big→small as the prefix shrinks, so running ALL
+        big tiles (in round order) before ALL small tiles (in round order)
+        preserves per-lane event order."""
+        b = resident.lengths.shape[0]
+        lane = _LANE_MULTIPLE
+        bs_big = min(self.batch_size, _round_up(max(b, 1), lane))
+        bs_small = min(bs_big, max(lane, bs_big // 8))
+        # bs_small MUST divide bs_big: the small-tile walk covers
+        # [n_big*bs_big, active) in bs_small steps while the slab is only
+        # padded to a bs_big multiple — a non-divisor's last tile would run
+        # past b_pad (_lane_range raises on that)
+        if bs_big % bs_small:
+            bs_small = max(c for c in range(lane, bs_small + 1, lane)
+                           if bs_big % c == 0)  # lane | bs_big, so non-empty
+        if bs_big % bs_small:
+            raise AssertionError((bs_big, bs_small))
+        width = self.resident_tile_width()
+        lens_host = resident.lengths
+        max_len = int(lens_host.max(initial=0)) if b else 0
+        sorted_desc = bool((np.diff(lens_host) <= 0).all()) if b > 1 else True
+        big_i0: list[int] = []
+        big_tb: list[int] = []
+        small_i0: list[int] = []
+        small_tb: list[int] = []
+        if sorted_desc:
+            lens_asc = lens_host[::-1]
+            t_base = 0
+            while t_base < max_len:
+                active = b - int(np.searchsorted(lens_asc, t_base, side="right"))
+                n_big = active // bs_big
+                for k in range(n_big):
+                    big_i0.append(k * bs_big)
+                    big_tb.append(t_base)
+                for i0 in range(n_big * bs_big, active, bs_small):
+                    small_i0.append(i0)
+                    small_tb.append(t_base)
+                t_base += width
+        else:
+            # unsorted corpus: schedule each contiguous lane range only up to
+            # its own local max length; lanes stay in one range, so ascending
+            # t_base per range preserves per-lane event order
+            for i0 in range(0, b, bs_big):
+                local_max = int(lens_host[i0: i0 + bs_big].max(initial=0))
+                for t_base in range(0, local_max, width):
+                    big_i0.append(i0)
+                    big_tb.append(t_base)
+        return ResidentPlan(
+            width=width, bs_big=bs_big, bs_small=bs_small,
+            big_i0=np.asarray(big_i0, dtype=np.int32),
+            big_tb=np.asarray(big_tb, dtype=np.int32),
+            small_i0=np.asarray(small_i0, dtype=np.int32),
+            small_tb=np.asarray(small_tb, dtype=np.int32))
+
+    @staticmethod
+    def _plan_cap(k: int) -> int:
+        """The reference's work-list buffer length bucket (next power of two
+        ≥ 64); kept for the dense-layout memory estimate."""
+        cap = 64
+        while cap < k:
+            cap *= 2
+        return cap
+
+    def replay_resident(self, resident: ResidentCorpus,
+                        init_carry: Mapping[str, Any] | None = None,
+                        ordinal_base: np.ndarray | None = None) -> ReplayResult:
+        """Fold a prepared resident corpus. Results are in the ORIGINAL
+        aggregate order of the ColumnarEvents given to :meth:`pack_resident`.
+
+        ``init_carry`` (``{field: [B]}``) resumes each aggregate from a state
+        instead of the init record, and ``ordinal_base`` (``[B]``) continues its
+        derived ordinals from the already-folded event count; both are numpy
+        arrays in the original order and are never written to."""
+        b = resident.lengths.shape[0]
+        if b == 0:
+            return ReplayResult(states={f.name: np.zeros((0,), dtype=f.dtype)
+                                        for f in self.spec.registry.state.fields},
+                                num_aggregates=0, num_events=0, padded_events=0)
+        init_sorted, ord_sorted = _apply_perm(resident.perm, init_carry,
+                                              ordinal_base)
+        slab, padded = self._dispatch_resident(resident, init_sorted, ord_sorted)
+        states = self._pull_states(slab, b, resident.perm, resident.cache)
+        return ReplayResult(states=states, num_aggregates=b,
+                            num_events=resident.num_events, padded_events=padded)
+
+    def fold_resident_slab(self, resident: ResidentCorpus,
+                           init_carry: Mapping[str, Any] | None = None,
+                           ordinal_base: np.ndarray | None = None
+                           ) -> tuple[dict, int]:
+        """Fold a prepared resident corpus and return the device state slab
+        ``({field: [b_pad] tensor}, padded_slots)`` instead of pulling states
+        to the host. Rows are in the corpus's SORTED lane order
+        (``resident.perm`` maps sorted rank → original aggregate index) and rows
+        past ``b`` are padding."""
+        init_sorted, ord_sorted = _apply_perm(resident.perm, init_carry,
+                                              ordinal_base)
+        return self._dispatch_resident(resident, init_sorted, ord_sorted)
+
+    def _pull_states(self, slab: Mapping[str, torch.Tensor], b: int,
+                     perm: Optional[np.ndarray],
+                     cache: Optional[dict] = None) -> dict[str, np.ndarray]:
+        """Un-permute and truncate on the device (one gather per column), then
+        copy each column to the host at its schema dtype. The reference packs
+        narrow u16 columns to save its slow device→host link; this pulls wide.
+        ``cache`` (a per-corpus dict) memoizes the device inverse permutation."""
+        inv = cache.get("invperm") if cache is not None else None
+        if inv is None:
+            invp = np.arange(b, dtype=np.int64)
+            if perm is not None:
+                invp[perm] = np.arange(b, dtype=np.int64)
+            inv = torch.from_numpy(invp).to(self.device)
+            if cache is not None:
+                cache["invperm"] = inv
+        return {f.name: slab[f.name][inv].cpu().numpy()
+                for f in self.spec.registry.state.fields}
+
+    def _dispatch_resident(self, resident: ResidentCorpus,
+                           init_sorted: Mapping[str, np.ndarray] | None,
+                           ord_sorted: np.ndarray | None) -> tuple[dict, int]:
+        """Fold one resident corpus without syncing: returns the (device)
+        state slab and the padded-slot count. Inputs are already in the
+        corpus's sorted lane order."""
+        b = resident.lengths.shape[0]
+        plan = self._plan_for(resident)
+        b_pad = resident.b_pad
+        if init_sorted is None and ord_sorted is None:
+            slab, ord_d = self._fresh_slab(b_pad)
+        else:
+            ord_p = np.zeros((b_pad,), dtype=np.int32)
+            if ord_sorted is not None:
+                ord_p[:b] = np.asarray(ord_sorted).astype(np.int32)
+            slab_np = self.init_carry_np(b_pad)
+            if init_sorted is not None:
+                for k, full in init_sorted.items():
+                    slab_np[k][:b] = np.asarray(full)
+            slab = {k: _to_device(v, self.device) for k, v in slab_np.items()}
+            ord_d = _to_device(ord_p, self.device)
+        self._run_tiles(resident, plan, slab, ord_d)
+        return slab, plan.padded_slots
+
+    def _run_tiles(self, resident: ResidentCorpus, plan: ResidentPlan,
+                   slab: dict, ord_d: torch.Tensor, limit: int | None = None
+                   ) -> None:
+        """Fold the plan's tiles into ``slab`` in place: all big tiles, then
+        all small ones (per-lane order holds because a lane only ever moves
+        big→small as the active prefix shrinks). ``limit`` folds only the
+        first tiles of each list (warm-up)."""
+        key = frozenset(resident.derived_key.items())
+        use_dense = self._use_dense(resident, plan)
+        for bs, i0s, t_bases in ((plan.bs_big, plan.big_i0, plan.big_tb),
+                                 (plan.bs_small, plan.small_i0, plan.small_tb)):
+            k_n = len(i0s) if limit is None else min(limit, len(i0s))
+            if k_n == 0:
+                continue
+            if limit is None:
+                self.stats["windows"] += k_n
+            work = zip(i0s[:k_n].tolist(), t_bases[:k_n].tolist())
+            if use_dense:
+                dw, ds = self._dense_tiles(resident, plan, bs, i0s, t_bases)
+                tile = self._tile_program(key, plan.width, bs, dense=True)
+                for k, (i0, tb) in enumerate(work):
+                    tile(slab, dw, ds, resident.lens_dev, ord_d, i0, tb, k)
+            else:
+                tile = self._tile_program(key, plan.width, bs, dense=False)
+                for i0, tb in work:
+                    tile(slab, resident.flat_wire, resident.flat_side,
+                         resident.starts_dev, resident.lens_dev, ord_d, i0, tb)
+
+    def _tile_program(self, key: frozenset, width: int, bs: int, dense: bool):
+        """The tile function for one derived-column declaration and geometry
+        (built once per engine)."""
+        ckey = (key, width, bs, dense, self.tile_backend)
+        tile = self._tiles.get(ckey)
+        if tile is None:
+            wire = WireFormat(self.spec.registry, dict(key))
+            make = _make_tile_dense if dense else _make_tile
+            tile = make(self.spec, wire, width, bs, self._dispatch,
+                        self.tile_backend)
+            self._tiles[ckey] = tile
+        return tile
+
+    def _plan_for(self, resident: ResidentCorpus) -> ResidentPlan:
+        """The corpus's tile plan, cached on the corpus."""
+        pkey = ("plan", self.resident_tile_width(), self.batch_size)
+        plan = resident.cache.get(pkey)
+        if plan is None:
+            plan = self._resident_plan(resident)
+            resident.cache[pkey] = plan
+        return plan
+
+    def _fresh_slab(self, b_pad: int):
+        """Fresh init state slab + zero ordinal base, built on the device."""
+        init = self.spec.init_state_tree()
+        slab = {f.name: torch.full((b_pad,), init[f.name].item(),
+                                   dtype=torch_dtype(f.dtype), device=self.device)
+                for f in self.spec.registry.state.fields}
+        return slab, torch.zeros((b_pad,), dtype=torch.int32, device=self.device)
+
+    def _use_dense(self, resident: ResidentCorpus, plan: ResidentPlan) -> bool:
+        if self._resident_layout == "flat":
+            return False
+        if self._resident_layout == "dense":
+            return True
+        if self.device.type == "cpu":
+            # dense trades memory (pad_ratio × corpus) for a per-pass gather
+            # the host does fine
+            return False
+        if plan.padded_slots < 16_000_000:
+            # below this scale the one-time gather never pays back
+            return False
+        return self._dense_bytes(resident, plan) <= self._dense_cap_mb * 1024 * 1024
+
+    def _dense_bytes(self, resident: ResidentCorpus, plan: ResidentPlan) -> int:
+        """Device memory the dense tile buffers would take, estimated as the
+        reference does (work lists padded to their power-of-two cap)."""
+        nbytes = int(resident.flat_wire.shape[1])
+        per_slot = nbytes + sum(arr.element_size()
+                                for arr in resident.flat_side.values())
+        total = 0
+        for bs, i0s in ((plan.bs_big, plan.big_i0),
+                        (plan.bs_small, plan.small_i0)):
+            if len(i0s):
+                total += self._plan_cap(len(i0s)) * bs * plan.width * per_slot
+        return total
+
+    def _dense_tiles(self, resident: ResidentCorpus, plan: ResidentPlan,
+                     bs: int, i0s: np.ndarray, t_bases: np.ndarray):
+        """Build-or-fetch the dense tile buffers for one work list (cached on
+        the corpus; the gather runs once per corpus, not once per pass)."""
+        ckey = ("dense", plan.width, bs, np.asarray(i0s, np.int32).tobytes(),
+                np.asarray(t_bases, np.int32).tobytes())
+        hit = resident.cache.get(ckey)
+        if hit is not None:
+            return hit
+        wire = WireFormat(self.spec.registry, dict(resident.derived_key))
+        t0 = time.perf_counter()
+        entry = _make_densify(wire, plan.width, bs)(
+            resident.flat_wire, resident.flat_side, resident.starts_dev,
+            i0s, t_bases)
+        resident.cache[ckey] = entry
+        self.stats["densify_s"] += time.perf_counter() - t0
+        return entry
+
+    def resident_cap_width(self) -> int:
+        """Largest tile width the memory budget allows (pow2 multiple of the
+        min window): one tile materializes a [batch, width] u32 slab and its
+        transpose, so width is capped by resident-slab-cap-mb."""
+        budget = self.config.get_int("surge.replay.resident-slab-cap-mb", 512)
+        w = max(self.min_time_window, 1)
+        while w * 2 * self.batch_size * 8 <= budget * 1_000_000:
+            w *= 2
+        return w
+
+    def resident_tile_width(self) -> int:
+        """The fixed tile width of :meth:`replay_resident` tiles: the
+        time-chunk rounded up to a power of two, inside the memory cap."""
+        w = max(self.min_time_window, 1)
+        target = max(self.time_chunk, 1)
+        cap = self.resident_cap_width()
+        while w < target and w < cap:
+            w *= 2
+        return w
+
+    def warm_resident(self, resident: ResidentCorpus) -> None:
+        """Do the one-time work of a replay before it is timed: build and load
+        the kernel (when the backend is the kernel), run the dense layout's
+        tile gather, and fold the first tile of each work list into a
+        discarded slab."""
+        b = resident.lengths.shape[0]
+        if b == 0:
+            return
+        if self.tile_backend == "pallas" and self.device.type == "cuda":
+            fold_kernels.load()
+        plan = self._plan_for(resident)
+        slab, ord_d = self._fresh_slab(resident.b_pad)
+        self._run_tiles(resident, plan, slab, ord_d, limit=1)
+        _sync(self.device)

@@ -43,3 +43,9 @@ def mesh8():
         "check nothing overrode XLA_FLAGS/JAX_PLATFORMS before jax "
         "initialized")
     return jax.sharding.Mesh(np.array(devs[:8]), ("data",))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (and JAX, like every test "
+                   "here); skips without one")
