@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive surge_tpu_torch's cold-replay main path on one CUDA card and check it.
+"""Drive surge_tpu_torch's main paths on one CUDA card and check them.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA card
 and the CUDA toolkit (``nvcc``); it builds the kernels from ``surge_tpu_torch/csrc``
@@ -7,7 +7,10 @@ first. Phases:
 
 0. the card's name and power limit, and the kernel build time;
 1. each kernel against its plain torch version on the card, byte for byte, at
-   the main path's tile shapes, with its time, bound and the plain time;
+   the main paths' shapes, with its time, bound and the plain time: K1 at the
+   cold-replay tiles, K2 at the refresh buckets (bs, width, rows) = (8, 2, 16),
+   (4096, 8, 32768), (65536, 4, 262144) and a chained (8, 512, 4096) window
+   with the starts shifted by 512 and 1024, for three model layouts;
 2. the main path at full size: ``synth_counter_corpus(1M aggregates, 100M
    events)`` through ``ReplayEngine`` under the bench config (batch 8192,
    time-chunk 64, tile-backend auto), ``pack_resident`` → ``upload_resident``
@@ -16,8 +19,15 @@ first. Phases:
    expected states exactly, and the kernel's launch count must grow;
 3. a resumed fold (first half of each log, then the rest from ``init_carry`` and
    ``ordinal_base``) and a bank_account corpus against the plain scan;
-4. one JSON line of every kernel's numbers, the card line, and a last line
-   ``{"ok": true, "device": {...}}``.
+4. the resident state plane (``ResidentStatePlane``) at deployment size: the
+   port's ``InMemoryLog`` with 8 partitions, the reference's default config
+   with 2^20 resident rows, a cold-start seed of 1,310,720 aggregates through
+   K1, 16 refresh rounds of about 32k events through K2 (evicting and
+   re-admitting, with chained windows every fourth round) while a reader
+   checks that no row is torn, then every aggregate read back against its
+   closed form; and a smaller plane on the dense dispatch through K1;
+then one JSON line of every kernel's numbers, the card line, and a last line
+``{"ok": true, "device": {...}}``.
 
 Any failure raises, exits non-zero and prints no result line. Without a CUDA
 card it exits with code 2 before doing anything.
@@ -26,6 +36,7 @@ card it exits with code 2 before doing anything.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
 import statistics
 import subprocess
@@ -209,6 +220,117 @@ def phase_kernels(width: int, shapes: list[int]) -> dict:
     return {"rows": rows}
 
 
+#: K2's refresh-bucket shapes (bs, width, rows, start shifts): a small bucket,
+#: a steady bucket, a large bucket, and a lane folding through chained
+#: 512-wide windows (its starts shifted by 512, then 1024)
+K2_SHAPES = [(8, 2, 16, (0,)), (4096, 8, 32768, (0,)),
+             (65536, 4, 262144, (0,)), (8, 512, 4096, (512, 1024))]
+
+
+def ragged_inputs(spec, wire, bs: int, width: int, rows: int, shift: int,
+                  seed: int, device):
+    """Random K2 inputs: full 32-bit words (corrupt type ids), lens of 0 and
+    of at least width, lanes whose reads clip at rows - 1, large ordinals;
+    starts lie in [shift, rows) (a chained window's shifted starts)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 32, size=rows, dtype=np.uint64)
+    words = words.astype(np.uint32).view(np.int32)
+    sides = {}
+    for f in wire.side_fields:
+        if np.dtype(f.dtype) == np.float32:
+            col = rng.standard_normal(rows).astype(np.float32)
+        else:
+            col = rng.integers(-(1 << 31), 1 << 31, size=rows,
+                               dtype=np.int64).astype(np.int32)
+        sides[f.name] = col
+    base = rng.integers(0, max(rows - shift, 1), size=bs)
+    starts = (base + shift).astype(np.int32)
+    lens = rng.integers(0, width + 4, size=bs).astype(np.int32)
+    lens[:4] = (0, width, width + 7, width)
+    starts[2] = rows - 1          # every step clips at the last row
+    starts[3] = max(rows - 1 - width // 2, 0)  # clips half way
+    ordv = rng.integers(0, 1 << 31, size=bs, dtype=np.int64).astype(np.int32)
+    ordv[:2] = (np.iinfo(np.int32).max, np.iinfo(np.int32).max - width // 2)
+    carry = {}
+    for f in spec.registry.state.fields:
+        dt = np.dtype(f.dtype)
+        if dt == np.bool_:
+            carry[f.name] = rng.integers(0, 2, size=bs).astype(bool)
+        elif dt == np.float32:
+            carry[f.name] = rng.standard_normal(bs).astype(np.float32)
+        else:
+            carry[f.name] = rng.integers(-(1 << 31), 1 << 31, size=bs,
+                                         dtype=np.int64).astype(np.int32)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return ({k: to(v) for k, v in carry.items()}, to(words),
+            {k: to(v) for k, v in sides.items()}, to(starts), to(lens),
+            to(ordv))
+
+
+def ragged_bytes(spec, wire, bs: int, rows: int) -> int:
+    """Bytes one K2 launch must move: the flat words and side columns, each
+    lane's start, length and ordinal, the carry in and out."""
+    state = sum(np.dtype(f.dtype).itemsize for f in spec.registry.state.fields)
+    side = sum(np.dtype(f.dtype).itemsize for f in wire.side_fields)
+    return rows * (4 + side) + bs * (12 + 2 * state)
+
+
+def phase_ragged_kernel() -> dict:
+    import torch
+
+    from surge_tpu_torch.replay import fold_kernels
+
+    rows_out = []
+    for label, spec, wire in kernel_cases():
+        for bs, width, rows, shifts in K2_SHAPES:
+            for shift in shifts:
+                args = ragged_inputs(spec, wire, bs, width, rows, shift,
+                                     seed=bs + width + shift + len(label),
+                                     device="cuda")
+                kw = dict(width=width, spec=spec, wire=wire)
+                out = fold_kernels.ragged_fold(*args, **kw)
+                ref = fold_kernels.ragged_fold_reference(*args, **kw)
+                torch.cuda.synchronize()
+                err = 0.0
+                for name, v in ref.items():
+                    got, want = out[name].cpu().numpy(), v.cpu().numpy()
+                    if got.tobytes() != want.tobytes():
+                        raise AssertionError(
+                            f"K2 {label} {(bs, width, rows, shift)}: field "
+                            f"{name!r} differs from the plain version at "
+                            f"{int(np.flatnonzero(got != want)[0])}")
+                    err = max(err, float(np.abs(got.astype(np.float64)
+                                                - want.astype(np.float64)).max()))
+                call_ms = cuda_ms(lambda: fold_kernels.ragged_fold(*args, **kw),
+                                  15, 20)
+                kernel_ms = device_kernel_ms(
+                    lambda: fold_kernels.ragged_fold(*args, **kw), 50,
+                    "ragged_fold_kernel")
+                plain_ms = cuda_ms(
+                    lambda: fold_kernels.ragged_fold_reference(*args, **kw), 3, 1)
+                nbytes = ragged_bytes(spec, wire, bs, rows)
+                ops = width * bs * 14  # clip, decode and step per slot
+                bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                bound_ops_ms = ops / INT32_OPS_PER_S * 1e3
+                row = {"case": label, "bs": bs, "width": width, "rows": rows,
+                       "shift": shift, "max_abs_err": err,
+                       "ms": kernel_ms if kernel_ms is not None else call_ms,
+                       "ms_source": ("profiler" if kernel_ms is not None
+                                     else "events"),
+                       "call_ms": call_ms,
+                       # the plain version repeats the kernel's arithmetic in
+                       # eager torch: a correctness yardstick, not a speed one
+                       "plain_ms": plain_ms, "bytes": nbytes,
+                       "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+                       "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
+                                    else "operations")}
+                rows_out.append(row)
+                log("phase1-k2 " + json.dumps(row))
+    return {"rows": rows_out}
+
+
 # -- phase 2: the main path -----------------------------------------------------------
 
 
@@ -388,10 +510,348 @@ def phase_resume_and_bank(card: str) -> dict:
     return row
 
 
+# -- phase 4: the resident state plane -----------------------------------------------
+
+PLANE_TOPIC = "counter-events"
+PLANE_PARTITIONS = 8
+#: one counter event on the log: type id (u8), increment_by (u8),
+#: sequence_number (u32), little-endian — decoded by deserialize_event(s)
+EVENT_RECORD = np.dtype([("type", "u1"), ("inc", "u1"), ("seq", "<u4")])
+
+
+def deserialize_events(raws):
+    """A batch of compact event records → the port's counter events (every
+    record this script writes is a CountIncremented)."""
+    from surge_tpu_torch.models.counter import CountIncremented
+
+    recs = np.frombuffer(b"".join(raws), dtype=EVENT_RECORD)
+    if recs["type"].any():
+        raise ValueError("not a CountIncremented record")
+    return [CountIncremented("", inc, seq) for inc, seq in
+            zip(recs["inc"].tolist(), recs["seq"].tolist())]
+
+
+def deserialize_event(raw):
+    return deserialize_events([raw])[0]
+
+
+class PlaneLog:
+    """The port's InMemoryLog plus the closed-form state of every aggregate
+    (all events increment by 1, so count == version == events folded)."""
+
+    def __init__(self, num_aggregates: int):
+        from surge_tpu_torch.log import InMemoryLog, TopicSpec
+
+        self.log = InMemoryLog()
+        self.log.create_topic(TopicSpec(PLANE_TOPIC, PLANE_PARTITIONS))
+        self.ids = [f"a{i}" for i in range(num_aggregates)]
+        self.n_events = np.zeros(num_aggregates, dtype=np.int64)
+        self._producer = self.log.transactional_producer("chip-smoke")
+
+    def append(self, aggs: np.ndarray, rng) -> int:
+        """Append one event per entry of ``aggs`` (aggregate indices, repeats
+        allowed), in a shuffled order that keeps each aggregate's own order,
+        as one transaction; returns the event count."""
+        from surge_tpu_torch.log import LogRecord
+
+        aggs = aggs[rng.permutation(len(aggs))]
+        order = np.argsort(aggs, kind="stable")
+        cum = np.empty(len(aggs), dtype=np.int64)
+        sorted_aggs = aggs[order]
+        first = np.r_[0, np.flatnonzero(np.diff(sorted_aggs)) + 1]
+        run = np.arange(len(aggs)) - np.repeat(first, np.diff(np.r_[first, len(aggs)]))
+        cum[order] = run
+        seq = self.n_events[aggs] + cum + 1
+        np.add.at(self.n_events, aggs, 1)
+        recs = np.zeros(len(aggs), dtype=EVENT_RECORD)
+        recs["inc"] = 1
+        recs["seq"] = seq
+        buf = recs.tobytes()
+        w = EVENT_RECORD.itemsize
+        ids = self.ids
+        prod = self._producer
+        prod.begin()
+        for j, a in enumerate(aggs.tolist()):
+            prod.send(LogRecord(topic=PLANE_TOPIC, key=ids[a],
+                                value=buf[j * w:(j + 1) * w],
+                                partition=a % PLANE_PARTITIONS))
+        prod.commit()
+        return len(aggs)
+
+
+class RoundLedger:
+    """A duck-typed refresh-round ledger: keeps every record_round call."""
+
+    def __init__(self):
+        self.rounds = []
+
+    def record_round(self, **kw):
+        self.rounds.append(kw)
+
+    def record_evict(self, count, **kw):
+        pass
+
+    def record_gather(self, **kw):
+        pass
+
+
+def make_plane(plog, overrides: dict, signals: list, ledger=None):
+    from surge_tpu_torch.config import Config
+    from surge_tpu_torch.models import counter
+    from surge_tpu_torch.replay.resident_state import ResidentStatePlane
+
+    return ResidentStatePlane(
+        plog.log, PLANE_TOPIC, counter.make_replay_spec(),
+        config=Config(overrides=overrides),
+        deserialize_event=deserialize_event,
+        deserialize_events=deserialize_events,
+        serialize_state=lambda agg, st: repr(st).encode(),
+        derived_cols={"sequence_number": "ordinal"},
+        on_signal=lambda name, level: signals.append((name, level)),
+        ledger=ledger)
+
+
+def round_aggregates(plog, plane, rng, heavy: bool) -> np.ndarray:
+    """One refresh round's events (aggregate index per event): per partition
+    up to 4096 events (the poll's and the staleness bound's size, so a round
+    folds in one poll and reads never fall back for lag), most touched
+    aggregates with 1-4 events and a tail with 17-256, about 20% of them
+    spilled; a heavy round gives one aggregate 1,800 events (chained
+    windows)."""
+    n = len(plog.ids)
+    spilled = np.fromiter((int(a[1:]) for a in plane._spill), dtype=np.int64)
+    parts = []
+    for p in range(PLANE_PARTITIONS):
+        budget = 4096
+        lane = []
+        if heavy and p == 0:
+            lane.append(np.full(1800, p, dtype=np.int64))  # aggregate 0
+            budget -= 1800
+        own_spilled = spilled[spilled % PLANE_PARTITIONS == p]
+        k = 1400
+        n_sp = min(k // 5, len(own_spilled))
+        picks = np.concatenate([
+            rng.choice(own_spilled, n_sp, replace=False) if n_sp else
+            np.zeros(0, dtype=np.int64),
+            rng.integers(0, n // PLANE_PARTITIONS, size=k - n_sp)
+            * PLANE_PARTITIONS + p])
+        picks = np.unique(picks[picks != 0])
+        rng.shuffle(picks)
+        lens = rng.integers(1, 5, size=len(picks))
+        tail = rng.random(len(picks)) < 0.0125
+        lens[tail] = rng.integers(17, 257, size=int(tail.sum()))
+        keep = np.cumsum(lens) <= budget
+        lane.append(np.repeat(picks[keep], lens[keep]))
+        parts.append(np.concatenate(lane))
+    return np.concatenate(parts)
+
+
+async def wait_lag_zero(plane, deadline_s: float):
+    t0 = time.perf_counter()
+    while plane.lag_records() > 0:
+        if time.perf_counter() - t0 > deadline_s:
+            raise AssertionError(f"refresh never caught up (lag "
+                                 f"{plane.lag_records()})")
+        await asyncio.sleep(0.002)
+
+
+async def read_back(plane, plog, batch: int) -> float:
+    """read_many over every aggregate in batches; every state must equal its
+    closed form. Returns rows/s."""
+    t0 = time.perf_counter()
+    for lo in range(0, len(plog.ids), batch):
+        ids = plog.ids[lo:lo + batch]
+        got = await plane.read_many(ids)
+        if len(got) != len(ids):
+            raise AssertionError(f"read_many served {len(got)} of {len(ids)}")
+        want = plog.n_events[lo:lo + batch]
+        count = np.fromiter((got[a].count for a in ids), dtype=np.int64,
+                            count=len(ids))
+        version = np.fromiter((got[a].version for a in ids), dtype=np.int64,
+                              count=len(ids))
+        if not (np.array_equal(count, want) and np.array_equal(version, want)):
+            bad = np.flatnonzero((count != want) | (version != want))[:5]
+            raise AssertionError(
+                f"states differ from the closed form at {[ids[i] for i in bad]}: "
+                f"{[(int(count[i]), int(version[i]), int(want[i])) for i in bad]}")
+    return len(plog.ids) / (time.perf_counter() - t0)
+
+
+async def torn_row_reader(plane, n: int, stop, seen: dict):
+    """Read random aggregates while rounds run: with all-increment traffic
+    every row must have count == version (a torn or mis-ordinaled row
+    breaks it)."""
+    rng = np.random.default_rng(11)
+    while not stop.is_set():
+        ids = [f"a{i}" for i in rng.integers(0, n, size=4096).tolist()]
+        got = await plane.read_many(ids)
+        for agg, st in got.items():
+            if st.count != st.version:
+                raise AssertionError(f"torn row {agg}: {st}")
+        seen["reads"] += 1
+        seen["rows"] += len(got)
+        await asyncio.sleep(0)
+
+
+def profile_round_stats(prof, wall_s: float) -> dict:
+    from torch.autograd import DeviceType
+
+    busy_us, k2_us, k2_n = 0.0, 0.0, 0
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            us = evt.time_range.elapsed_us()
+            busy_us += us
+            if "ragged_fold_kernel" in evt.name:
+                k2_us += us
+                k2_n += 1
+    wall_us = wall_s * 1e6
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / wall_us if wall_us else None,
+            "k2_launches": k2_n,
+            "k2_ms_per_launch": k2_us / k2_n / 1e3 if k2_n else None}
+
+
+async def drive_plane(card: str, *, aggregates: int, capacity: int,
+                      rounds: int, dispatch: str, seed: int) -> dict:
+    """One plane through its seed, refresh rounds and read-back; fails on any
+    signal, fallback, torn row or state off its closed form."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from surge_tpu_torch.replay import fold_kernels
+
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    plog = PlaneLog(aggregates)
+    lens = 1 + rng.binomial(7, 0.2, size=aggregates)  # 1-8 events, ~2.4 mean
+    plog.append(np.repeat(np.arange(aggregates, dtype=np.int64), lens), rng)
+    log_s = time.perf_counter() - t0
+    signals: list = []
+    ledger = RoundLedger()
+    plane = make_plane(plog, {
+        "surge.replay.resident.capacity": capacity,
+        "surge.replay.resident.refresh-dispatch": dispatch}, signals, ledger)
+    if plane.engine.tile_backend != "pallas":
+        raise AssertionError("the plane's backend did not resolve to the kernels")
+    # host clocks around two plane stages (measurement only): the LRU
+    # eviction (sort + row pull, on the loop) and each window's executor
+    # half (uploads + the locked enqueue of its ops)
+    stage_s = {"evict": 0.0, "window": 0.0}
+
+    def timed(stage, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                stage_s[stage] += time.perf_counter() - t
+        return run
+
+    plane._evict = timed("evict", plane._evict)
+    plane._run_window = timed("window", plane._run_window)
+    torch.cuda.reset_peak_memory_stats()
+    for k in fold_kernels.LAUNCHES:
+        fold_kernels.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    await plane.start()
+    start_s = time.perf_counter() - t0
+    seed_launches = dict(fold_kernels.LAUNCHES)
+    stop = asyncio.Event()
+    seen = {"reads": 0, "rows": 0}
+    reader = asyncio.ensure_future(torn_row_reader(plane, aggregates, stop, seen))
+    per_round = []
+    profiled = None
+    try:
+        for r in range(rounds + 1):  # the last round runs under the profiler
+            aggs = round_aggregates(plog, plane, rng, heavy=r % 4 == 3)
+            n0 = len(ledger.rounds)
+            s0 = dict(stage_s)
+            w0 = time.perf_counter()
+            if r == rounds:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    plog.append(aggs, rng)
+                    await wait_lag_zero(plane, 300.0)
+                    torch.cuda.synchronize()
+                profiled = profile_round_stats(prof, time.perf_counter() - w0)
+            else:
+                plog.append(aggs, rng)
+                await wait_lag_zero(plane, 300.0)
+            wall = time.perf_counter() - w0
+            for kw in ledger.rounds[n0:]:
+                per_round.append({
+                    "round": r, "events": kw["events"], "lanes": kw["lanes"],
+                    "buckets": len(kw["buckets"] or ()),
+                    "windows": kw["windows"], "evictions": kw["evictions"],
+                    "waste_ratio": (kw["dispatched"] / kw["occupied"]
+                                    if kw["occupied"] else 0.0),
+                    "feed_ms": kw["feed_us"] / 1e3,
+                    "encode_ms": kw["encode_us"] / 1e3,
+                    "dispatch_ms": kw["dispatch_us"] / 1e3,
+                    "window_exec_ms": (stage_s["window"] - s0["window"]) * 1e3,
+                    "evict_ms": (stage_s["evict"] - s0["evict"]) * 1e3,
+                    "appended": len(aggs), "wall_ms": wall * 1e3,
+                    "profiled": r == rounds})
+            if seen["reads"] == 0:
+                await asyncio.sleep(0.01)
+    finally:
+        stop.set()
+        await reader
+    launches = dict(fold_kernels.LAUNCHES)
+    rows_per_s = await read_back(plane, plog, 65536)
+    await plane.stop()
+    measured = [x for x in per_round if not x["profiled"]]
+    ev = sum(x["events"] for x in measured)
+    wall_ms = sum(x["wall_ms"] for x in {x["round"]: x for x in measured}.values())
+    if signals:
+        raise AssertionError(f"the plane signalled {signals}")
+    if plane.stats["fallbacks"]:
+        raise AssertionError(f"{plane.stats['fallbacks']} reads fell back: "
+                             f"{plane.fallback_causes}")
+    if plane.stats["evictions"] <= 0:
+        raise AssertionError("no round evicted")
+    if seed_launches["tile_scan"] <= 0:
+        raise AssertionError("the seed launched K1 no time")
+    key = "ragged_fold" if dispatch == "bucketed" else "tile_scan"
+    if launches[key] - seed_launches[key] <= 0:
+        raise AssertionError(f"the refresh rounds launched {key} no time")
+    if seen["reads"] == 0:
+        raise AssertionError("the torn-row reader never read")
+    return {
+        "card": card, "dispatch": dispatch, "aggregates": aggregates,
+        "capacity": capacity, "seed_events": int(lens.sum()),
+        "log_build_s": log_s, "start_s": start_s, "seed": plane.seed_timing,
+        "seed_launches": seed_launches,
+        "refresh_launches": {k: launches[k] - seed_launches[k] for k in launches},
+        "rounds": per_round, "refresh_events_per_s": ev / (wall_ms / 1e3),
+        "read_many_rows_per_s": rows_per_s,
+        "torn_reader": seen, "evictions": plane.stats["evictions"],
+        "fallbacks": plane.stats["fallbacks"],
+        "device_mem_peak_bytes": torch.cuda.max_memory_allocated(),
+        "profiled_round": profiled}
+
+
+def phase_plane(card: str, args) -> dict:
+    main = asyncio.run(drive_plane(
+        card, aggregates=args.plane_aggregates, capacity=1 << 20,
+        rounds=args.plane_rounds, dispatch="bucketed", seed=4))
+    log("phase4 " + json.dumps(main))
+    dense = asyncio.run(drive_plane(
+        card, aggregates=65536, capacity=32768, rounds=4, dispatch="dense",
+        seed=5))
+    log("phase4-dense " + json.dumps(dense))
+    return {"main": main, "dense": dense}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3",
+    ap.add_argument("--phases", default="0,1,2,3,4",
                     help="comma-separated phases to run (default: all)")
+    ap.add_argument("--plane-aggregates", type=int, default=1_310_720,
+                    help="phase 4: aggregates seeded (capacity is 2^20)")
+    ap.add_argument("--plane-rounds", type=int, default=16,
+                    help="phase 4: refresh rounds after the seed")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -412,7 +872,8 @@ def main() -> int:
     log(f"phase0 card: {card}")
     build_s = _build.build_all()
     log(f"phase0 build_s: {json.dumps(build_s)}")
-    log(_build.library_path("tile_scan").with_suffix(".log").read_text().strip())
+    for name in ("tile_scan", "ragged_fold"):
+        log(_build.library_path(name).with_suffix(".log").read_text().strip())
     fold_kernels.load()
 
     probe = ReplayEngine(counter.make_replay_spec(),
@@ -421,9 +882,10 @@ def main() -> int:
     bs_big = probe.batch_size
     bs_small = max(8, bs_big // 8)
 
-    k1 = None
+    k1 = k2 = None
     if 1 in phases:
         k1 = phase_kernels(width, [bs_big, bs_small])
+        k2 = phase_ragged_kernel()
     main_rows = []
     if 2 in phases:
         t0 = time.perf_counter()
@@ -434,6 +896,9 @@ def main() -> int:
         del corpus
     if 3 in phases:
         phase_resume_and_bank(card)
+    plane = None
+    if 4 in phases:
+        plane = phase_plane(card, args)
 
     if k1 is not None:
         # the kernel's line: the bench tile (counter, derived ordinal, bs 8192)
@@ -450,11 +915,27 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None,
         }]
+        # K2's line: the steady refresh bucket (counter, derived ordinal,
+        # bs 4096, width 8, rows 32768)
+        head = next(r for r in k2["rows"]
+                    if r["case"] == "counter/derived" and r["bs"] == 4096)
+        kernels.append({
+            "name": "ragged_fold",
+            "route": "cuda",
+            "source": "surge_tpu_torch/csrc/ragged_fold.cu",
+            "replaces": "surge_tpu/replay/pallas_fold.py:170",
+            "launches": (plane["main"]["refresh_launches"]["ragged_fold"]
+                         if plane else 0),
+            "max_abs_err": max(r["max_abs_err"] for r in k2["rows"]),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None,  # no PyTorch call folds a per-lane sequence
+        })
         log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))  # the run uses one card, whatever else is visible
     return 0
 
 

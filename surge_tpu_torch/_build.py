@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a plain
 C interface, ``build/lib<name>-<digest>.so`` inside the package (``build/`` is
 git-ignored), which :mod:`surge_tpu_torch.replay.fold_kernels` loads with
-``ctypes``. The digest covers the source and the flags, so an edited source
-rebuilds and an unchanged one is reused. No PyTorch header is compiled, which
+``ctypes``. The digest covers the source, every shared header
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and an
+unchanged one is reused. No PyTorch header is compiled, which
 keeps a build to seconds.
 """
 
@@ -43,9 +44,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (content-addressed)."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to (content-addressed: the source, the
+    shared headers it may include, and the flags)."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -1,7 +1,7 @@
 """Struct-of-arrays encoding of per-aggregate event logs — a copy of the parts of
 ``surge_tpu/codec/tensor.py`` the replay slice uses (``EncodedEvents``,
-``ColumnarEvents``, ``encode_events_columnar``, ``encode_states``,
-``decode_states``).
+``ColumnarEvents``, ``encode_events_columnar``, ``columnar_to_batch``,
+``encode_events``, ``encode_states``, ``decode_states``).
 
 ``ColumnarEvents`` is the storage layout: N events across B aggregates, time-ordered
 within each aggregate, one flat array per union column. Encoding is pure NumPy on the
@@ -126,6 +126,39 @@ def encode_events_columnar(registry: SchemaRegistry,
             cols[name][ii] = [getter(flat[k], name) for k in idxs]
     return ColumnarEvents(num_aggregates=len(event_logs), agg_idx=agg_idx,
                           type_ids=type_ids, cols=cols)
+
+
+def columnar_to_batch(colev: ColumnarEvents, pad_to: int | None = None) -> EncodedEvents:
+    """Scatter a flat columnar log into the padded ``[B, T]`` batch. Fully vectorized
+    (one stable argsort + one fancy-index scatter per column); no per-event Python."""
+    b = colev.num_aggregates
+    n = colev.num_events
+    lengths = np.bincount(colev.agg_idx, minlength=b).astype(np.int32)
+    t = int(pad_to) if pad_to is not None else int(lengths.max(initial=0))
+    if lengths.size and int(lengths.max(initial=0)) > t:
+        raise ValueError(f"pad_to={t} < longest log {int(lengths.max())}")
+    srt = colev.sorted_by_aggregate()
+    sorted_agg, src_tids, src_cols = srt.agg_idx, srt.type_ids, srt.cols
+    starts = np.zeros(b + 1, dtype=np.int64)
+    np.cumsum(lengths, out=starts[1:])
+    slot = np.arange(n, dtype=np.int64) - starts[sorted_agg]
+
+    type_ids = np.full((b, t), PAD_TYPE_ID, dtype=np.int32)
+    type_ids[sorted_agg, slot] = src_tids
+    cols = {}
+    for name, col in src_cols.items():
+        buf = np.zeros((b, t), dtype=col.dtype)
+        buf[sorted_agg, slot] = col
+        cols[name] = buf
+    return EncodedEvents(type_ids=type_ids, cols=cols, lengths=lengths,
+                         derived_cols=dict(colev.derived_cols))
+
+
+def encode_events(registry: SchemaRegistry, event_logs: Sequence[Sequence[Any]],
+                  pad_to: int | None = None) -> EncodedEvents:
+    """Encode ragged per-aggregate event lists into a dense tagged-union batch."""
+    return columnar_to_batch(encode_events_columnar(registry, event_logs),
+                             pad_to=pad_to)
 
 
 _EXCLUDED_DEFAULTS = {str: "", int: 0, float: 0.0, bool: False}

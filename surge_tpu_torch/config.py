@@ -1,4 +1,4 @@
-"""Layered key/value config with env overrides — the replay slice's copy of
+"""Layered key/value config with env overrides — the port's copy of
 ``surge_tpu/config/__init__.py`` (``Config``, ``default_config``).
 
 Keys are dotted strings (``surge.replay.batch-size``). Resolution order:
@@ -18,8 +18,8 @@ def _env_key(key: str) -> str:
     return key.upper().replace(".", "_").replace("-", "_")
 
 
-#: the ``surge.replay.*`` keys the resident replay path reads, with the
-#: reference's defaults (surge_tpu/config/__init__.py)
+#: the ``surge.replay.*`` keys the resident replay path and the resident
+#: state plane read, with the reference's defaults (surge_tpu/config)
 DEFAULTS: dict[str, Any] = {
     "surge.replay.batch-size": 8192,  # aggregates per device step
     "surge.replay.time-chunk": 512,  # events scanned per tile
@@ -44,6 +44,26 @@ DEFAULTS: dict[str, Any] = {
     # pad resident buffers to power-of-two lengths ("pow2") or keep exact
     # lengths ("exact")
     "surge.replay.resident-len-bucket": "pow2",  # pow2 | exact
+    # --- the resident state plane (replay/resident_state.py) ---
+    # update the slab in place through every refresh window (true) or fold
+    # into a copy published at the group's commit (false)
+    "surge.replay.donate-refresh": True,
+    # hot-set bound: aggregates resident in the device slab at once; the
+    # overflow spills to a host-side dict at its exact fold point
+    "surge.replay.resident.capacity": 65536,
+    # staleness bound for plane-served reads, in records of partition lag
+    # (entity init always demands lag 0)
+    "surge.replay.resident.max-lag-records": 4096,
+    # refresh loop: records pulled per partition per fold round, and how long
+    # an idle round waits on wait_for_append before re-polling
+    "surge.replay.resident.refresh-max-poll-records": 4096,
+    "surge.replay.resident.refresh-interval-ms": 50,
+    # decode each round's committed tail with the batch deserializer when
+    # one is wired (false: the per-event feed)
+    "surge.replay.resident.native-feed": True,
+    # "bucketed" deals a round's lanes into pow2 length buckets, one fused
+    # program per occupied bucket; "dense" folds one rectangle per round
+    "surge.replay.resident.refresh-dispatch": "bucketed",  # bucketed | dense
 }
 
 
@@ -72,6 +92,10 @@ class Config:
         if isinstance(v, str):
             return v.strip().lower() in ("1", "true", "yes", "on")
         return bool(v)
+
+    def get_seconds(self, key: str, fallback_ms: int = 0) -> float:
+        """Millisecond config value as seconds (asyncio sleeps take seconds)."""
+        return self.get_int(key, fallback_ms) / 1000.0
 
     def get_str(self, key: str, fallback: str = "") -> str:
         return str(self.get(key, fallback))

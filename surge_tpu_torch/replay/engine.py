@@ -832,6 +832,10 @@ class ReplayEngine:
     def _use_dense(self, resident: ResidentCorpus, plan: ResidentPlan) -> bool:
         if self._resident_layout == "flat":
             return False
+        if resident.cache.get("oneshot"):
+            # a corpus folded once pays the densify gather without ever
+            # amortizing it — always gather per-pass
+            return False
         if self._resident_layout == "dense":
             return True
         if self.device.type == "cpu":

@@ -1,4 +1,5 @@
-"""K1, the resident tile scan: its wrapper and its plain torch version.
+"""The fold kernels K1 (the resident tile scan) and K2 (the ragged refresh
+fold): their wrappers and their plain torch versions.
 
 ``tile_scan(carry, words, sides, lens_rel, ord_rel, *, spec, wire)`` folds one
 time-major tile: ``carry {field: [bs]}``, ``words [width, bs]`` (the u32 wire
@@ -8,9 +9,18 @@ lane's ordinal base shifted by the tile offset, so the derived ordinal of
 local step t is ``ord_rel + t + 1``). It computes what the Pallas kernel
 ``surge_tpu/replay/pallas_fold.py:make_tile_scan`` computes.
 
-On CPU tensors the wrapper runs :func:`tile_scan_reference`; on CUDA tensors it
-launches the hand-written kernel (``surge_tpu_torch/csrc/tile_scan.cu``) or
-raises. ``LAUNCHES["tile_scan"]`` counts kernel launches, and nothing else.
+``ragged_fold(carry, words, sides, starts, lens, ord, *, width, spec, wire)``
+folds one refresh bucket from a FLAT event buffer: ``words [rows]``, ``sides
+{name: [rows]}``; lane ``b`` at step ``t < width`` reads row
+``min(starts[b] + t, rows - 1)``, valid while ``t < lens[b]``, with the derived
+ordinal ``ord[b] + t + 1``. It computes what the Pallas kernel
+``surge_tpu/replay/pallas_fold.py:make_ragged_fold`` computes (``starts`` are
+never negative there; a negative start clamps to row 0 here).
+
+On CPU tensors each wrapper runs its plain version (:func:`tile_scan_reference`,
+:func:`ragged_fold_reference`); on CUDA tensors it launches the hand-written
+kernel (``surge_tpu_torch/csrc/tile_scan.cu``, ``csrc/ragged_fold.cu``) or
+raises. ``LAUNCHES[name]`` counts kernel launches, and nothing else.
 """
 
 from __future__ import annotations
@@ -37,7 +47,7 @@ KERNEL_STEPS: dict[str, tuple[tuple[str, ...], tuple[str, ...]]] = {
 }
 
 #: kernel launches per wrapper (reset by the caller; never by this module)
-LAUNCHES: dict[str, int] = {"tile_scan": 0}
+LAUNCHES: dict[str, int] = {"tile_scan": 0, "ragged_fold": 0}
 
 _MAX_COLS = 8
 _MAX_STATE = 8
@@ -49,7 +59,7 @@ _STATE_KINDS = {np.dtype(np.int32): _WORD, np.dtype(np.float32): _WORD,
 
 
 class _DecodeArgs(ctypes.Structure):
-    # mirrors struct DecodeArgs in csrc/tile_scan.cu
+    # mirrors struct DecodeArgs in csrc/fold_common.cuh
     _fields_ = [("type_bits", ctypes.c_int32), ("num_types", ctypes.c_int32),
                 ("n_cols", ctypes.c_int32),
                 ("kind", ctypes.c_int32 * _MAX_COLS),
@@ -59,7 +69,7 @@ class _DecodeArgs(ctypes.Structure):
 
 
 class _StateArgs(ctypes.Structure):
-    # mirrors struct StateArgs in csrc/tile_scan.cu
+    # mirrors struct StateArgs in csrc/fold_common.cuh
     _fields_ = [("n_state", ctypes.c_int32),
                 ("kind", ctypes.c_int32 * _MAX_STATE),
                 ("in_", ctypes.c_void_p * _MAX_STATE),
@@ -96,8 +106,75 @@ def tile_scan(carry: Mapping[str, torch.Tensor], words: torch.Tensor,
         raise ValueError(f"tile_scan runs on cpu or cuda tensors, got "
                          f"{words.device}")
     step_id, layout = _decode_args(spec.kernel_step, spec.registry, wire)
-    dec = _DecodeArgs.from_buffer_copy(layout)  # side pointers are per call
     width, bs = _check_tile(carry, words, sides, lens_rel, ord_rel, spec, wire)
+    out, dec, sa = _kernel_args(layout, carry, sides, spec)
+    if bs == 0:
+        return out
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    err = _library("tile_scan").surge_tile_scan(
+        step_id, width, bs, words.data_ptr(), lens_rel.data_ptr(),
+        ord_rel.data_ptr(), ctypes.byref(dec), ctypes.byref(sa), stream)
+    if err != 0:
+        raise RuntimeError(f"tile_scan kernel launch failed: cudaError_t {err}")
+    LAUNCHES["tile_scan"] += 1
+    return out
+
+
+def ragged_fold_reference(carry: Mapping[str, torch.Tensor], words: torch.Tensor,
+                          sides: Mapping[str, torch.Tensor], starts: torch.Tensor,
+                          lens: torch.Tensor, ord: torch.Tensor, *, width: int,
+                          spec: ReplaySpec, wire: WireFormat
+                          ) -> dict[str, torch.Tensor]:
+    """The plain torch version of K2: the select step over ``width`` steps,
+    each gathering row ``min(starts + t, rows - 1)`` of the flat buffer."""
+    from surge_tpu_torch.replay.engine import make_step_fn
+
+    step = make_step_fn(spec, "select")
+    rows = words.shape[0]
+    state = dict(carry)
+    for t in range(width):
+        idx = (starts.to(torch.int64) + t).clamp_(0, rows - 1)
+        events = wire.decode_words(words[idx], {n: s[idx] for n, s in sides.items()},
+                                   t < lens, ord, t)
+        state = step(state, events)
+    return state
+
+
+def ragged_fold(carry: Mapping[str, torch.Tensor], words: torch.Tensor,
+                sides: Mapping[str, torch.Tensor], starts: torch.Tensor,
+                lens: torch.Tensor, ord: torch.Tensor, *, width: int,
+                spec: ReplaySpec, wire: WireFormat) -> dict[str, torch.Tensor]:
+    """Fold one ragged refresh bucket: the plain version for CPU tensors, the
+    kernel for CUDA tensors (see the module docstring)."""
+    if words.device.type == "cpu":
+        return ragged_fold_reference(carry, words, sides, starts, lens, ord,
+                                     width=width, spec=spec, wire=wire)
+    if words.device.type != "cuda":
+        raise ValueError(f"ragged_fold runs on cpu or cuda tensors, got "
+                         f"{words.device}")
+    step_id, layout = _decode_args(spec.kernel_step, spec.registry, wire)
+    rows, bs = _check_ragged(carry, words, sides, starts, lens, ord, width,
+                             spec, wire)
+    out, dec, sa = _kernel_args(layout, carry, sides, spec)
+    if bs == 0:
+        return out
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    err = _library("ragged_fold").surge_ragged_fold(
+        step_id, width, rows, bs, words.data_ptr(), starts.data_ptr(),
+        lens.data_ptr(), ord.data_ptr(), ctypes.byref(dec), ctypes.byref(sa),
+        stream)
+    if err != 0:
+        raise RuntimeError(f"ragged_fold kernel launch failed: cudaError_t {err}")
+    LAUNCHES["ragged_fold"] += 1
+    return out
+
+
+def _kernel_args(layout: "_DecodeArgs", carry: Mapping[str, torch.Tensor],
+                 sides: Mapping[str, torch.Tensor], spec: ReplaySpec):
+    """The output carry (allocated here) and the kernel's argument structs:
+    a per-call copy of the cached decode layout with the side pointers set,
+    and the state pointers."""
+    dec = _DecodeArgs.from_buffer_copy(layout)  # side pointers are per call
     fields = spec.registry.state.fields
     out = {f.name: torch.empty_like(carry[f.name]) for f in fields}
     sa = _StateArgs()
@@ -106,20 +183,10 @@ def tile_scan(carry: Mapping[str, torch.Tensor], words: torch.Tensor,
         sa.kind[i] = _STATE_KINDS[np.dtype(f.dtype)]
         sa.in_[i] = carry[f.name].data_ptr()
         sa.out[i] = out[f.name].data_ptr()
-    cols = KERNEL_STEPS[spec.kernel_step][1]
-    for c, name in enumerate(cols):
+    for c, name in enumerate(KERNEL_STEPS[spec.kernel_step][1]):
         if dec.kind[c] == _SIDE:
             dec.side[c] = sides[name].data_ptr()
-    if bs == 0:
-        return out
-    stream = torch.cuda.current_stream(words.device).cuda_stream
-    err = _library().surge_tile_scan(step_id, width, bs, words.data_ptr(),
-                                     lens_rel.data_ptr(), ord_rel.data_ptr(),
-                                     ctypes.byref(dec), ctypes.byref(sa), stream)
-    if err != 0:
-        raise RuntimeError(f"tile_scan kernel launch failed: cudaError_t {err}")
-    LAUNCHES["tile_scan"] += 1
-    return out
+    return out, dec, sa
 
 
 @functools.lru_cache(maxsize=64)
@@ -199,63 +266,107 @@ def _describe(dec: _DecodeArgs, col_names, union) -> dict:
     }
 
 
+def _need(t: torch.Tensor, what: str, shape: tuple, dtype: torch.dtype,
+          dev: torch.device) -> None:
+    if t.device != dev:
+        raise ValueError(f"{what} is on {t.device}, words on {dev}")
+    if tuple(t.shape) != shape or t.dtype != dtype:
+        raise ValueError(f"{what} must be {dtype} {shape}, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def _check_carry_and_sides(carry, sides, bs: int, side_shape: tuple, spec,
+                           wire, dev) -> None:
+    for f in spec.registry.state.fields:
+        _need(carry[f.name], f"carry[{f.name!r}]", (bs,), torch_dtype(f.dtype), dev)
+    if set(sides) != {f.name for f in wire.side_fields}:
+        raise ValueError(f"sides {sorted(sides)} != the wire's side columns "
+                         f"{sorted(f.name for f in wire.side_fields)}")
+    for f in wire.side_fields:
+        _need(sides[f.name], f"sides[{f.name!r}]", side_shape,
+              torch_dtype(f.dtype), dev)
+
+
 def _check_tile(carry, words, sides, lens_rel, ord_rel, spec, wire
                 ) -> tuple[int, int]:
-    """Device, dtype, shape and contiguity of every kernel input; returns
+    """Device, dtype, shape and contiguity of every K1 input; returns
     ``(width, bs)``."""
     dev = words.device
     if words.dtype != torch.int32 or words.dim() != 2:
         raise ValueError(f"words must be int32 [width, bs], got {words.dtype} "
                          f"{tuple(words.shape)}")
     width, bs = words.shape
-
-    def need(t: torch.Tensor, what: str, shape: tuple, dtype: torch.dtype):
-        if t.device != dev:
-            raise ValueError(f"{what} is on {t.device}, words on {dev}")
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{what} must be {dtype} {shape}, got {t.dtype} "
-                             f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{what} must be contiguous")
-
-    need(words, "words", (width, bs), torch.int32)
-    need(lens_rel, "lens_rel", (bs,), torch.int32)
-    need(ord_rel, "ord_rel", (bs,), torch.int32)
-    for f in spec.registry.state.fields:
-        need(carry[f.name], f"carry[{f.name!r}]", (bs,), torch_dtype(f.dtype))
-    if set(sides) != {f.name for f in wire.side_fields}:
-        raise ValueError(f"sides {sorted(sides)} != the wire's side columns "
-                         f"{sorted(f.name for f in wire.side_fields)}")
-    for f in wire.side_fields:
-        need(sides[f.name], f"sides[{f.name!r}]", (width, bs), torch_dtype(f.dtype))
+    _need(words, "words", (width, bs), torch.int32, dev)
+    _need(lens_rel, "lens_rel", (bs,), torch.int32, dev)
+    _need(ord_rel, "ord_rel", (bs,), torch.int32, dev)
+    _check_carry_and_sides(carry, sides, bs, (width, bs), spec, wire, dev)
     return width, bs
 
 
+def _check_ragged(carry, words, sides, starts, lens, ord, width, spec, wire
+                  ) -> tuple[int, int]:
+    """Device, dtype, shape and contiguity of every K2 input; returns
+    ``(rows, bs)``."""
+    dev = words.device
+    if words.dtype != torch.int32 or words.dim() != 1 or words.shape[0] < 1:
+        raise ValueError(f"words must be int32 [rows] with rows >= 1, got "
+                         f"{words.dtype} {tuple(words.shape)}")
+    if int(width) < 0:
+        raise ValueError(f"width must be >= 0, got {width}")
+    rows = words.shape[0]
+    if starts.dim() != 1:
+        raise ValueError(f"starts must be int32 [bs], got {tuple(starts.shape)}")
+    bs = starts.shape[0]
+    _need(words, "words", (rows,), torch.int32, dev)
+    _need(starts, "starts", (bs,), torch.int32, dev)
+    _need(lens, "lens", (bs,), torch.int32, dev)
+    _need(ord, "ord", (bs,), torch.int32, dev)
+    _check_carry_and_sides(carry, sides, bs, (rows,), spec, wire, dev)
+    return rows, bs
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel library; checks that the C
-    step functors fold the schemas KERNEL_STEPS names."""
+def _library(name: str) -> ctypes.CDLL:
+    """Build (at first use) and load the kernel library ``csrc/<name>.cu``
+    (``tile_scan`` or ``ragged_fold``); checks that the C step functors fold
+    the schemas KERNEL_STEPS names."""
     from surge_tpu_torch._build import library
 
-    lib = ctypes.CDLL(str(library("tile_scan")))
-    lib.surge_tile_scan.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(_DecodeArgs),
-        ctypes.POINTER(_StateArgs), ctypes.c_void_p]
-    lib.surge_tile_scan.restype = ctypes.c_int
-    lib.surge_tile_scan_shape.argtypes = [
-        ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-    lib.surge_tile_scan_shape.restype = ctypes.c_int
-    for step_id, (name, (state, cols)) in enumerate(KERNEL_STEPS.items()):
+    lib = ctypes.CDLL(str(library(name)))
+    if name == "tile_scan":
+        lib.surge_tile_scan.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(_DecodeArgs),
+            ctypes.POINTER(_StateArgs), ctypes.c_void_p]
+        lib.surge_tile_scan.restype = ctypes.c_int
+    elif name == "ragged_fold":
+        lib.surge_ragged_fold.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.POINTER(_DecodeArgs), ctypes.POINTER(_StateArgs),
+            ctypes.c_void_p]
+        lib.surge_ragged_fold.restype = ctypes.c_int
+    else:
+        raise ValueError(f"no kernel library {name!r}")
+    shape = getattr(lib, f"surge_{name}_shape")
+    shape.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                      ctypes.POINTER(ctypes.c_int)]
+    shape.restype = ctypes.c_int
+    for step_id, (step, (state, cols)) in enumerate(KERNEL_STEPS.items()):
         n_cols, n_state = ctypes.c_int(), ctypes.c_int()
-        if (lib.surge_tile_scan_shape(step_id, ctypes.byref(n_cols),
-                                      ctypes.byref(n_state)) != 0
+        if (shape(step_id, ctypes.byref(n_cols), ctypes.byref(n_state)) != 0
                 or (n_cols.value, n_state.value) != (len(cols), len(state))):
-            raise RuntimeError(f"kernel step {step_id} does not fold {name!r} "
+            raise RuntimeError(f"{name} step {step_id} does not fold {step!r} "
                                f"({len(cols)} columns, {len(state)} state fields)")
     return lib
 
 
 def load() -> None:
-    """Build and load the kernel library now (the first launch would)."""
-    _library()
+    """Build and load every kernel library now (the first launch would)."""
+    from surge_tpu_torch._build import build_all
+
+    build_all(["tile_scan", "ragged_fold"])
+    _library("tile_scan")
+    _library("ragged_fold")

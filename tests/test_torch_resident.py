@@ -315,3 +315,21 @@ def test_replay_keys_and_defaults_match_the_reference():
     cfg = Config().with_overrides(surge_replay_time_chunk=99)
     assert cfg.get_int("surge.replay.time-chunk") == 99
     assert cfg.get_int_list("surge.replay.batch-size") == [8192]
+
+
+@pytest.mark.parametrize("layout", ["dense", "auto", "flat"])
+def test_oneshot_corpus_never_densifies(corpus, layout):
+    """A corpus marked ``oneshot`` (folded exactly once: the resident plane's
+    seed and shadow replay) gathers per pass under every layout, as the
+    reference's ``_use_dense`` decides."""
+    c, jc = corpus
+    ov = dict(BASE, **{"surge.replay.resident-layout": layout})
+    eng = ReplayEngine(counter.make_replay_spec(), Config(overrides=ov),
+                       device="cpu")
+    jeng = JEngine(jcounter.make_replay_spec(), config=JConfig(overrides=ov))
+    res, jres = eng.prepare_resident(c.events), jeng.prepare_resident(jc.events)
+    plan, jplan = eng._plan_for(res), jeng._plan_for(jres)
+    assert eng._use_dense(res, plan) == jeng._use_dense(jres, jplan) \
+        == (layout == "dense")
+    res.cache["oneshot"] = jres.cache["oneshot"] = True
+    assert eng._use_dense(res, plan) is jeng._use_dense(jres, jplan) is False
