@@ -167,12 +167,17 @@ def tile_inputs(spec, wire, width: int, bs: int, seed: int, device):
             {k: to(v) for k, v in sides.items()}, to(lens), to(ordr))
 
 
-def tile_bytes(spec, wire, width: int, bs: int) -> int:
-    """Bytes one launch must move: each input read once, each output written
-    once (words, sides, lens, ordinals, carry in and out)."""
+def tile_work(spec, wire, args, width: int) -> tuple[int, int]:
+    """(bytes, valid steps) one K1 launch needs on these inputs: the word
+    and side columns of each slot some lane folds (``t < lens_rel``) read
+    once, each lane's length and ordinal read once, the carry read and
+    written once."""
+    lens = args[3].cpu().numpy()
+    bs = len(lens)
+    steps = int(np.minimum(np.clip(lens, 0, None), width).sum())
     state = sum(np.dtype(f.dtype).itemsize for f in spec.registry.state.fields)
     side = sum(np.dtype(f.dtype).itemsize for f in wire.side_fields)
-    return width * bs * (4 + side) + bs * (4 + 4 + 2 * state)
+    return steps * (4 + side) + bs * (4 + 4 + 2 * state), steps
 
 
 def phase_kernels(width: int, shapes: list[int]) -> dict:
@@ -202,8 +207,8 @@ def phase_kernels(width: int, shapes: list[int]) -> dict:
                 lambda: fold_kernels.tile_scan(*args, **kw), 50, "tile_scan_kernel")
             plain_ms = cuda_ms(
                 lambda: fold_kernels.tile_scan_reference(*args, **kw), 3, 1)
-            nbytes = tile_bytes(spec, wire, width, bs)
-            ops = width * bs * 12  # decode and step: ~a dozen integer ops a slot
+            nbytes, steps = tile_work(spec, wire, args, width)
+            ops = steps * 12  # decode and step: ~a dozen integer ops a step
             bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             bound_ops_ms = ops / INT32_OPS_PER_S * 1e3
             # ms: the kernel's device time (profiler) where the trace has it,
@@ -212,6 +217,7 @@ def phase_kernels(width: int, shapes: list[int]) -> dict:
                    "ms": kernel_ms if kernel_ms is not None else call_ms,
                    "ms_source": "profiler" if kernel_ms is not None else "events",
                    "call_ms": call_ms, "plain_ms": plain_ms, "bytes": nbytes,
+                   "valid_steps": steps,
                    "bound_ms": max(bound_bytes_ms, bound_ops_ms),
                    "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
                                 else "operations")}
@@ -229,12 +235,28 @@ K2_SHAPES = [(8, 2, 16, (0,)), (4096, 8, 32768, (0,)),
 
 def ragged_inputs(spec, wire, bs: int, width: int, rows: int, shift: int,
                   seed: int, device):
-    """Random K2 inputs: full 32-bit words (corrupt type ids), lens of 0 and
-    of at least width, lanes whose reads clip at rows - 1, large ordinals;
-    starts lie in [shift, rows) (a chained window's shifted starts)."""
+    """Random K2 inputs laid out as the plane packs a refresh bucket: each
+    lane's events lie lane-contiguous from the exclusive cumsum of the lane
+    lengths, the buffer is ``_pow2(events)`` rows, and padding lanes start at
+    row 0 with no events. A bucket of width w holds lanes of w//2+1 to w
+    events; lane 0 holds more than the width (three windows at width 512).
+    A chained window shifts the starts by ``shift`` and folds
+    ``lengths - shift`` events (lens of 0 and of at least the width). On
+    top: full 32-bit words (corrupt type ids, random pad rows), two lanes
+    moved into the pad tail whose reads clip at rows - 1, and large
+    ordinals. Returns the kernel's arguments."""
     import torch
 
     rng = np.random.default_rng(seed)
+    n_pad = max(1, bs // 16)
+    lengths = np.zeros(bs, dtype=np.int64)
+    lengths[:bs - n_pad] = rng.integers(width // 2 + 1, width + 1,
+                                        size=bs - n_pad)
+    lengths[0] = 2 * width + 77 if width >= 64 else width + 1
+    total = int(lengths.sum())
+    if 1 << max(total - 1, 0).bit_length() != rows:
+        raise AssertionError(f"K2 inputs: {total} events do not pack into "
+                             f"{rows} rows")
     words = rng.integers(0, 1 << 32, size=rows, dtype=np.uint64)
     words = words.astype(np.uint32).view(np.int32)
     sides = {}
@@ -245,12 +267,14 @@ def ragged_inputs(spec, wire, bs: int, width: int, rows: int, shift: int,
             col = rng.integers(-(1 << 31), 1 << 31, size=rows,
                                dtype=np.int64).astype(np.int32)
         sides[f.name] = col
-    base = rng.integers(0, max(rows - shift, 1), size=bs)
-    starts = (base + shift).astype(np.int32)
-    lens = rng.integers(0, width + 4, size=bs).astype(np.int32)
-    lens[:4] = (0, width, width + 7, width)
-    starts[2] = rows - 1          # every step clips at the last row
-    starts[3] = max(rows - 1 - width // 2, 0)  # clips half way
+    starts = np.zeros(bs, dtype=np.int64)
+    starts[1:bs - n_pad] = np.cumsum(lengths)[:bs - n_pad - 1]
+    starts[:bs - n_pad] += shift
+    lens = np.clip(lengths - shift, 0, None)
+    starts[2] = rows - 1                          # every step clips
+    starts[3] = max(rows - 1 - width // 2, 0)     # clips half way
+    lens[2:4] = width
+    starts, lens = starts.astype(np.int32), lens.astype(np.int32)
     ordv = rng.integers(0, 1 << 31, size=bs, dtype=np.int64).astype(np.int32)
     ordv[:2] = (np.iinfo(np.int32).max, np.iinfo(np.int32).max - width // 2)
     carry = {}
@@ -269,12 +293,22 @@ def ragged_inputs(spec, wire, bs: int, width: int, rows: int, shift: int,
             to(ordv))
 
 
-def ragged_bytes(spec, wire, bs: int, rows: int) -> int:
-    """Bytes one K2 launch must move: the flat words and side columns, each
-    lane's start, length and ordinal, the carry in and out."""
+def ragged_work(spec, wire, args, width: int) -> tuple[int, int]:
+    """(bytes, valid steps) one K2 launch needs on these inputs: each flat
+    row some lane folds (``min(starts + t, rows - 1)`` for ``t < lens``) read
+    once as a word and its side columns, each lane's start, length and
+    ordinal read once, the carry read and written once."""
+    _, words, _, starts, lens, _ = args
+    rows = words.shape[0]
+    starts = starts.cpu().numpy().astype(np.int64)
+    steps = np.minimum(np.clip(lens.cpu().numpy(), 0, None), width)
+    t = np.arange(width, dtype=np.int64)
+    read = np.minimum(np.clip(starts, 0, None)[:, None] + t[None, :], rows - 1)
+    needed = np.unique(read[t[None, :] < steps[:, None]]).size
+    bs = len(starts)
     state = sum(np.dtype(f.dtype).itemsize for f in spec.registry.state.fields)
     side = sum(np.dtype(f.dtype).itemsize for f in wire.side_fields)
-    return rows * (4 + side) + bs * (12 + 2 * state)
+    return needed * (4 + side) + bs * (12 + 2 * state), int(steps.sum())
 
 
 def phase_ragged_kernel() -> dict:
@@ -310,8 +344,8 @@ def phase_ragged_kernel() -> dict:
                     "ragged_fold_kernel")
                 plain_ms = cuda_ms(
                     lambda: fold_kernels.ragged_fold_reference(*args, **kw), 3, 1)
-                nbytes = ragged_bytes(spec, wire, bs, rows)
-                ops = width * bs * 14  # clip, decode and step per slot
+                nbytes, steps = ragged_work(spec, wire, args, width)
+                ops = steps * 14  # clip, decode and step per valid step
                 bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
                 bound_ops_ms = ops / INT32_OPS_PER_S * 1e3
                 row = {"case": label, "bs": bs, "width": width, "rows": rows,
@@ -323,6 +357,7 @@ def phase_ragged_kernel() -> dict:
                        # the plain version repeats the kernel's arithmetic in
                        # eager torch: a correctness yardstick, not a speed one
                        "plain_ms": plain_ms, "bytes": nbytes,
+                       "valid_steps": steps,
                        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
                        "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
                                     else "operations")}
@@ -514,6 +549,12 @@ def phase_resume_and_bank(card: str) -> dict:
 
 PLANE_TOPIC = "counter-events"
 PLANE_PARTITIONS = 8
+#: the main plane's deployment: 2^20 resident rows, 1.25x as many aggregates
+#: (the seed spills the rest), 16 refresh rounds. A cut forced by the time
+#: limit lowers the seed's events, then the rounds, and is recorded in PERF.md
+PLANE_CAPACITY = 1 << 20
+PLANE_AGGREGATES = 1_310_720
+PLANE_ROUNDS = 16
 #: one counter event on the log: type id (u8), increment_by (u8),
 #: sequence_number (u32), little-endian — decoded by deserialize_event(s)
 EVENT_RECORD = np.dtype([("type", "u1"), ("inc", "u1"), ("seq", "<u4")])
@@ -734,8 +775,8 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
     if plane.engine.tile_backend != "pallas":
         raise AssertionError("the plane's backend did not resolve to the kernels")
     # host clocks around two plane stages (measurement only): the LRU
-    # eviction (sort + row pull, on the loop) and each window's executor
-    # half (uploads + the locked enqueue of its ops)
+    # eviction (sort on the loop + row pull, fetched in the executor) and
+    # each window's executor half (uploads + the locked enqueue of its ops)
     stage_s = {"evict": 0.0, "window": 0.0}
 
     def timed(stage, fn):
@@ -747,7 +788,16 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
                 stage_s[stage] += time.perf_counter() - t
         return run
 
-    plane._evict = timed("evict", plane._evict)
+    def timed_async(stage, fn):
+        async def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return await fn(*a, **k)
+            finally:
+                stage_s[stage] += time.perf_counter() - t
+        return run
+
+    plane._evict = timed_async("evict", plane._evict)
     plane._run_window = timed("window", plane._run_window)
     torch.cuda.reset_peak_memory_stats()
     for k in fold_kernels.LAUNCHES:
@@ -756,6 +806,8 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
     await plane.start()
     start_s = time.perf_counter() - t0
     seed_launches = dict(fold_kernels.LAUNCHES)
+    for k in fold_kernels.LAUNCHES:
+        fold_kernels.LAUNCHES[k] = 0
     stop = asyncio.Event()
     seen = {"reads": 0, "rows": 0}
     reader = asyncio.ensure_future(torn_row_reader(plane, aggregates, stop, seen))
@@ -766,19 +818,27 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
             aggs = round_aggregates(plog, plane, rng, heavy=r % 4 == 3)
             n0 = len(ledger.rounds)
             s0 = dict(stage_s)
-            w0 = time.perf_counter()
+            # the round's clock starts once the append returns: the append
+            # is synchronous on the loop, so the plane cannot start its
+            # round before that
             if r == rounds:
                 torch.cuda.synchronize()
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
+                    a0 = time.perf_counter()
                     plog.append(aggs, rng)
+                    w0 = time.perf_counter()
                     await wait_lag_zero(plane, 300.0)
                     torch.cuda.synchronize()
-                profiled = profile_round_stats(prof, time.perf_counter() - w0)
+                    wall = time.perf_counter() - w0
+                profiled = profile_round_stats(prof, wall)
             else:
+                a0 = time.perf_counter()
                 plog.append(aggs, rng)
+                w0 = time.perf_counter()
                 await wait_lag_zero(plane, 300.0)
-            wall = time.perf_counter() - w0
+                wall = time.perf_counter() - w0
+            append_s = w0 - a0
             for kw in ledger.rounds[n0:]:
                 per_round.append({
                     "round": r, "events": kw["events"], "lanes": kw["lanes"],
@@ -791,14 +851,15 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
                     "dispatch_ms": kw["dispatch_us"] / 1e3,
                     "window_exec_ms": (stage_s["window"] - s0["window"]) * 1e3,
                     "evict_ms": (stage_s["evict"] - s0["evict"]) * 1e3,
-                    "appended": len(aggs), "wall_ms": wall * 1e3,
+                    "appended": len(aggs), "append_ms": append_s * 1e3,
+                    "wall_ms": wall * 1e3,
                     "profiled": r == rounds})
             if seen["reads"] == 0:
                 await asyncio.sleep(0.01)
     finally:
         stop.set()
         await reader
-    launches = dict(fold_kernels.LAUNCHES)
+    refresh_launches = dict(fold_kernels.LAUNCHES)
     rows_per_s = await read_back(plane, plog, 65536)
     await plane.stop()
     measured = [x for x in per_round if not x["profiled"]]
@@ -814,7 +875,7 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
     if seed_launches["tile_scan"] <= 0:
         raise AssertionError("the seed launched K1 no time")
     key = "ragged_fold" if dispatch == "bucketed" else "tile_scan"
-    if launches[key] - seed_launches[key] <= 0:
+    if refresh_launches[key] <= 0:
         raise AssertionError(f"the refresh rounds launched {key} no time")
     if seen["reads"] == 0:
         raise AssertionError("the torn-row reader never read")
@@ -823,7 +884,7 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
         "capacity": capacity, "seed_events": int(lens.sum()),
         "log_build_s": log_s, "start_s": start_s, "seed": plane.seed_timing,
         "seed_launches": seed_launches,
-        "refresh_launches": {k: launches[k] - seed_launches[k] for k in launches},
+        "refresh_launches": refresh_launches,
         "rounds": per_round, "refresh_events_per_s": ev / (wall_ms / 1e3),
         "read_many_rows_per_s": rows_per_s,
         "torn_reader": seen, "evictions": plane.stats["evictions"],
@@ -832,10 +893,10 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
         "profiled_round": profiled}
 
 
-def phase_plane(card: str, args) -> dict:
+def phase_plane(card: str) -> dict:
     main = asyncio.run(drive_plane(
-        card, aggregates=args.plane_aggregates, capacity=1 << 20,
-        rounds=args.plane_rounds, dispatch="bucketed", seed=4))
+        card, aggregates=PLANE_AGGREGATES, capacity=PLANE_CAPACITY,
+        rounds=PLANE_ROUNDS, dispatch="bucketed", seed=4))
     log("phase4 " + json.dumps(main))
     dense = asyncio.run(drive_plane(
         card, aggregates=65536, capacity=32768, rounds=4, dispatch="dense",
@@ -844,14 +905,16 @@ def phase_plane(card: str, args) -> dict:
     return {"main": main, "dense": dense}
 
 
+def total_launches(paths: dict) -> int | None:
+    """The launches of the paths that ran in this call; None if none ran."""
+    ran = [n for n in paths.values() if n is not None]
+    return sum(ran) if ran else None
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="0,1,2,3,4",
                     help="comma-separated phases to run (default: all)")
-    ap.add_argument("--plane-aggregates", type=int, default=1_310_720,
-                    help="phase 4: aggregates seeded (capacity is 2^20)")
-    ap.add_argument("--plane-rounds", type=int, default=16,
-                    help="phase 4: refresh rounds after the seed")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -898,9 +961,26 @@ def main() -> int:
         phase_resume_and_bank(card)
     plane = None
     if 4 in phases:
-        plane = phase_plane(card, args)
+        plane = phase_plane(card)
 
     if k1 is not None:
+        # launches on each main path, read right after that path ran with
+        # the counts at 0 (None: the path did not run in this call)
+        main_p = plane["main"] if plane else None
+        dense_p = plane["dense"] if plane else None
+        k1_paths = {
+            "cold_replay_auto": main_rows[0]["k1_launches"] if main_rows else None,
+            "cold_replay_flat": main_rows[1]["k1_launches"] if main_rows else None,
+            "plane_seed": main_p["seed_launches"]["tile_scan"] if plane else None,
+            "plane_refresh": (main_p["refresh_launches"]["tile_scan"]
+                              if plane else None),
+            "plane_dense_seed": (dense_p["seed_launches"]["tile_scan"]
+                                 if plane else None),
+            "plane_dense_refresh": (dense_p["refresh_launches"]["tile_scan"]
+                                    if plane else None),
+        }
+        k2_paths = {"plane_refresh": (main_p["refresh_launches"]["ragged_fold"]
+                                      if plane else None)}
         # the kernel's line: the bench tile (counter, derived ordinal, bs 8192)
         head = next(r for r in k1["rows"]
                     if r["case"] == "counter/derived" and r["bs"] == bs_big)
@@ -909,7 +989,8 @@ def main() -> int:
             "route": "cuda",
             "source": "surge_tpu_torch/csrc/tile_scan.cu",
             "replaces": "surge_tpu/replay/pallas_fold.py:86",
-            "launches": main_rows[0]["k1_launches"] if main_rows else 0,
+            "launches": total_launches(k1_paths),
+            "launches_by_path": k1_paths,
             "max_abs_err": max(r["max_abs_err"] for r in k1["rows"]),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -924,8 +1005,8 @@ def main() -> int:
             "route": "cuda",
             "source": "surge_tpu_torch/csrc/ragged_fold.cu",
             "replaces": "surge_tpu/replay/pallas_fold.py:170",
-            "launches": (plane["main"]["refresh_launches"]["ragged_fold"]
-                         if plane else 0),
+            "launches": total_launches(k2_paths),
+            "launches_by_path": k2_paths,
             "max_abs_err": max(r["max_abs_err"] for r in k2["rows"]),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

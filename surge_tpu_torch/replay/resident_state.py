@@ -398,6 +398,14 @@ class ResidentStatePlane(Controllable):
         """The fetch barrier: device words and ordinals to the host."""
         return mat.cpu().numpy().view(np.uint32), o.cpu().numpy()
 
+    async def _fetch_async(self, mat: torch.Tensor, o: torch.Tensor):
+        """``_fetch`` from the loop: in the executor on the card, where it
+        waits for every window enqueued before it."""
+        if self._fetch_off_loop:
+            return await asyncio.get_running_loop().run_in_executor(
+                None, self._fetch, mat, o)
+        return self._fetch(mat, o)
+
     def _seed_scatter(self, src_slab, src_pos: np.ndarray, dst: np.ndarray,
                       lens: np.ndarray) -> None:
         """Rows ``src_pos`` of ``src_slab`` into plane slots ``dst`` with
@@ -1023,7 +1031,7 @@ class ResidentStatePlane(Controllable):
         admit_ids = [a for a in group if a not in self._dir]
         short = len(admit_ids) - len(self._free)
         if short > 0:
-            self._evict(short, protect=set(group))
+            await self._evict(short, protect=set(group))
         init = self.spec.init_state_tree()
         new_slots: Dict[str, int] = {}
         slot_of = np.empty((b,), dtype=np.int32)
@@ -1212,10 +1220,11 @@ class ResidentStatePlane(Controllable):
         self._tick += 1
         self._lru[agg_id] = self._tick
 
-    def _evict(self, n: int, protect: set) -> None:
+    async def _evict(self, n: int, protect: set) -> None:
         """Pull the n least-recently-touched unprotected rows to the host
         spill and free their slots (a spilled row re-admits at its exact
-        fold point)."""
+        fold point). The pull's fetch runs off the loop on the card; a
+        victim purged by a rebalance meanwhile stays purged."""
         victims = sorted((a for a in self._dir if a not in protect),
                          key=lambda a: self._lru.get(a, 0))[:n]
         if len(victims) < n:
@@ -1225,21 +1234,27 @@ class ResidentStatePlane(Controllable):
                 f"(capacity {self.capacity})")
         idx = np.fromiter((self._dir[v] for v in victims), dtype=np.int32,
                           count=len(victims))
-        rows, ords = self._pull_positions(None, idx)
+        mat, o = self._enqueue_gather(None, idx, _pow2(max(n, 1)), pad=0)
+        host, ords = await self._fetch_async(mat, o)
+        rows = self._decode_wide(host, n)
+        evicted = 0
         for j, v in enumerate(victims):
+            if self._dir.get(v) != idx[j]:
+                continue
             self._spill[v] = ({k: rows[k][j] for k in rows}, int(ords[j]))
             self._free.append(self._dir.pop(v))
             self._lru.pop(v, None)
-        self.stats["evictions"] += len(victims)
-        self._round_acc["evictions"] += len(victims)
+            evicted += 1
+        self.stats["evictions"] += evicted
+        self._round_acc["evictions"] += evicted
         if self.metrics is not None:
-            self.metrics.resident_evictions.record(len(victims))
+            self.metrics.resident_evictions.record(evicted)
         if self.flight is not None:
-            self.flight.record("resident.evict", count=len(victims),
+            self.flight.record("resident.evict", count=evicted,
                                resident=len(self._dir),
                                spilled=len(self._spill))
         if self.ledger is not None:
-            self.ledger.record_evict(len(victims), resident=len(self._dir),
+            self.ledger.record_evict(evicted, resident=len(self._dir),
                                      cause="capacity")
 
     def _pull_positions(self, slab, positions: np.ndarray):
@@ -1499,8 +1514,7 @@ class ResidentStatePlane(Controllable):
             mat, o = self._enqueue_gather(None, slots, _pow2(k), pad=slots[0])
             disp_s = time.perf_counter() - t
             t = time.perf_counter()
-            host, _ = (await loop.run_in_executor(None, self._fetch, mat, o)
-                       if self._fetch_off_loop else self._fetch(mat, o))
+            host, _ = await self._fetch_async(mat, o)
             fetch_s = time.perf_counter() - t
             t = time.perf_counter()
             rows = self._decode_wide(host, k)

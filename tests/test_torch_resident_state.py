@@ -401,6 +401,52 @@ def test_live_refresh_loop_never_serves_a_torn_row(donate):
     _run(scenario())
 
 
+def test_the_loop_never_runs_a_fetch_of_a_card_plane():
+    """On the card a fetch waits for every window enqueued before it, so both
+    the eviction pull and the gather lane run it in the executor. A CPU plane
+    set to fetch as on the card must never fetch on the loop's thread while
+    rounds evict and reads are served."""
+    async def scenario():
+        log = make_log()
+        exp = Expected()
+        aggs = [f"agg-{i}" for i in range(40)]
+        append_events(log, [e for a in aggs for e in exp.events(a, 2)])
+        plane = ResidentStatePlane(
+            log, TOPIC, counter.make_replay_spec(), device="cpu",
+            config=Config(overrides={
+                "surge.replay.resident.capacity": 24,
+                "surge.replay.resident.refresh-interval-ms": 5,
+                "surge.replay.time-chunk": 8}),
+            deserialize_event=port_event,
+            serialize_state=lambda a, s: repr(s).encode())
+        await plane.start()
+        plane._fetch_off_loop = True
+        fetch, threads = plane._fetch, []
+
+        def recording_fetch(mat, o):
+            threads.append(threading.current_thread())
+            return fetch(mat, o)
+
+        plane._fetch = recording_fetch
+        ev0 = plane.stats["evictions"]
+        for rnd in range(4):
+            append_events(log, [e for i, a in enumerate(aggs)
+                                if (i + rnd) % 2 == 0
+                                for e in exp.events(a, 1 + i % 5)])
+            for _ in range(2000):
+                if plane.lag_records() == 0:
+                    break
+                await asyncio.sleep(0.005)
+            got = await plane.read_many(aggs)
+            assert {a: (s.count, s.version) for a, s in got.items()} == {
+                a: (s.count, s.version) for a, s in exp.states.items()}
+        await plane.stop()
+        assert plane.stats["evictions"] > ev0 and threads
+        assert threading.current_thread() not in threads
+
+    _run(scenario())
+
+
 # -- construction and backend resolution ------------------------------------------------
 
 
