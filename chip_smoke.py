@@ -7,22 +7,26 @@ first. Phases:
 
 0. the card's name and power limit, and the kernel build time;
 1. each kernel against its plain torch version on the card, byte for byte, at
-   the main paths' shapes, with its time, bound and the plain time: K1 at the
-   cold-replay tiles, K2 at the refresh buckets (bs, width, rows) = (8, 2, 16),
-   (4096, 8, 32768), (65536, 4, 262144) and a chained (8, 512, 4096) window
-   with the starts shifted by 512 and 1024, for three model layouts;
+   the main paths' shapes, with its time, bound and the plain time: K1's
+   per-tile entry at the cold-replay tiles; K1's list fold over the bench
+   plan's work lists (dense) and, on cut corpora, both sources, three model
+   layouts and the edges (bs_small 8, a batch of 104 lanes, width 512); K2 at
+   the refresh buckets (bs, width, rows) = (8, 2, 16), (4096, 8, 32768),
+   (65536, 4, 262144) and a chained (8, 512, 4096) window with the starts
+   shifted by 512 and 1024, for three model layouts;
 2. the main path at full size: ``synth_counter_corpus(1M aggregates, 100M
    events)`` through ``ReplayEngine`` under the bench config (batch 8192,
    time-chunk 64, tile-backend auto), ``pack_resident`` → ``upload_resident``
-   → ``warm_resident`` → ``replay_resident`` three times, with the layout
+   → ``warm_resident`` → ``replay_resident`` five times, with the layout
    ``auto`` picks and with ``flat``; the states must equal the closed-form
-   expected states exactly, and the kernel's launch count must grow;
+   expected states exactly, each replay must launch the list fold once per
+   non-empty work list, and the per-tile entry never;
 3. a resumed fold (first half of each log, then the rest from ``init_carry`` and
    ``ordinal_base``) and a bank_account corpus against the plain scan;
 4. the resident state plane (``ResidentStatePlane``) at deployment size: the
    port's ``InMemoryLog`` with 8 partitions, the reference's default config
    with 2^20 resident rows, a cold-start seed of 1,310,720 aggregates through
-   K1, 16 refresh rounds of about 32k events through K2 (evicting and
+   K1's list fold, 16 refresh rounds of about 32k events through K2 (evicting and
    re-admitting, with chained windows every fourth round) while a reader
    checks that no row is torn, then every aggregate read back against its
    closed form; and a smaller plane on the dense dispatch through K1;
@@ -95,6 +99,16 @@ def device_kernel_ms(fn, calls: int, name: str) -> float | None:
     """Mean device time of the CUDA kernels whose name contains ``name`` over
     ``calls`` calls of ``fn``, from the profiler's CUPTI trace; None when the
     trace holds no such kernel time."""
+    per_launch, _ = device_kernel_times(fn, calls, name)
+    return per_launch
+
+
+def device_kernel_times(fn, calls: int, name: str
+                        ) -> tuple[float | None, int]:
+    """(mean device ms per launch, launches traced) of the CUDA kernels whose
+    name contains ``name``, from the profiler's CUPTI trace over ``calls``
+    calls of ``fn``; (None, 0) when the trace holds no such kernel time. The
+    trace can miss launches made through ctypes, so count them, not calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -110,8 +124,8 @@ def device_kernel_ms(fn, calls: int, name: str) -> float | None:
             total_us += evt.device_time_total
             count += evt.count
     if count == 0 or total_us <= 0:
-        return None
-    return total_us / count / 1e3
+        return None, 0
+    return total_us / count / 1e3, count
 
 
 # -- phase 1: kernel against its plain version ---------------------------------------
@@ -223,6 +237,216 @@ def phase_kernels(width: int, shapes: list[int]) -> dict:
                                 else "operations")}
             rows.append(row)
             log("phase1 " + json.dumps(row))
+    return {"rows": rows}
+
+
+#: the list fold's cut cases: (label, layout, corpus, config overrides). The
+#: corpora are cut from the bench's shape; the edges are a corpus whose small
+#: tiles hold 8 lanes (8 wire bytes a row: the kernel's plain-load path), a
+#: batch of 104 lanes (tiles that end inside a lane block) and width 512
+LIST_CASES = [
+    ("counter/derived", "counter/derived", "cut", {}),
+    ("counter/side", "counter/side", "cut", {}),
+    ("bank_account", "bank_account", "bank", {}),
+    ("counter/derived bs_small 8", "counter/derived", "tiny", {}),
+    ("bank_account bs_small 8", "bank_account", "tiny", {}),
+    ("counter/derived batch 104", "counter/derived", "small",
+     {"surge.replay.batch-size": 104}),
+    ("bank_account batch 104", "bank_account", "small",
+     {"surge.replay.batch-size": 104}),
+    ("counter/derived width 512", "counter/derived", "cut",
+     {"surge.replay.time-chunk": 512}),
+]
+
+
+def list_corpus(layout: str, corpus: str):
+    """A cut corpus of the layout: the counter corpus's shape (lognormal
+    lengths, spread 0.6) at 100k aggregates / 5M events ("cut"), 3,000 / 150k
+    ("small") or 64 / 1,600 ("tiny"), with the ordinal derived or shipped as a
+    side column; bank_account logs for "bank" (500k accounts of 0-89
+    events, as phase 3, cut to 100k) and on the counter's lengths otherwise."""
+    from surge_tpu_torch.codec.tensor import ColumnarEvents
+    from surge_tpu_torch.models import bank_account as ba
+    from surge_tpu_torch.replay.corpus import synth_counter_corpus
+
+    if corpus == "bank":
+        return bank_corpus(100_000, seed=6)
+    aggs, events = {"cut": (100_000, 5_000_000), "small": (3_000, 150_000),
+                    "tiny": (64, 1_600)}[corpus]
+    c = synth_counter_corpus(aggs, events, seed=1)
+    ev = c.events
+    if layout == "counter/derived":
+        return ev
+    starts = np.zeros(aggs + 1, dtype=np.int64)
+    np.cumsum(c.lengths, out=starts[1:])
+    if layout == "counter/side":
+        seq = (np.arange(ev.num_events) - starts[ev.agg_idx] + 1).astype(np.int32)
+        return ColumnarEvents(num_aggregates=aggs, agg_idx=ev.agg_idx,
+                              type_ids=ev.type_ids,
+                              cols=dict(ev.cols, sequence_number=seq))
+    rng = np.random.default_rng(2)
+    n = ev.num_events
+    created = rng.random(n) < 0.1
+    quarter = lambda: (rng.integers(0, 4_000_000, size=n) * 0.25).astype(np.float32)  # noqa: E731
+    codes = lambda: np.where(created, rng.integers(1, 1 << 20, size=n), 0).astype(np.int32)  # noqa: E731
+    return ColumnarEvents(
+        num_aggregates=aggs, agg_idx=ev.agg_idx,
+        type_ids=np.where(created, ba.CREATED, ba.UPDATED).astype(np.int32),
+        cols={"owner_code": codes(), "security_code_code": codes(),
+              "balance": np.where(created, quarter(), 0).astype(np.float32),
+              "new_balance": np.where(created, 0, quarter()).astype(np.float32)})
+
+
+def list_work(eng, resident, plan, source: str) -> tuple[int, int]:
+    """(bytes, valid steps) one replay's list folds need: the wire bytes and
+    side values of each slot some lane folds (``t < lens - t_base``) read
+    once, each touched lane's length and ordinal (and start, flat) read once
+    and its carry read and written once, plus the work lists and their
+    schedules."""
+    from surge_tpu_torch.replay import fold_kernels
+
+    wire = eng._wire(frozenset(resident.derived_key.items()))
+    lens = np.zeros(resident.b_pad, dtype=np.int64)
+    lens[:len(resident.lengths)] = resident.lengths
+    touched = np.zeros(resident.b_pad, dtype=bool)
+    steps, extra = 0, 0
+    for bs, i0s, t_bases in ((plan.bs_big, plan.big_i0, plan.big_tb),
+                             (plan.bs_small, plan.small_i0, plan.small_tb)):
+        for i0, tb in zip(i0s.tolist(), t_bases.tolist()):
+            steps += int(np.clip(lens[i0:i0 + bs] - tb, 0, plan.width).sum())
+            touched[i0:i0 + bs] = True
+        ids, off, tiles = fold_kernels.list_schedule(i0s, bs, resident.b_pad)
+        extra += 8 * len(i0s) + 4 * (len(ids) + len(off) + len(tiles))
+    state = sum(np.dtype(f.dtype).itemsize for f in eng.spec.registry.state.fields)
+    side = sum(np.dtype(f.dtype).itemsize for f in wire.side_fields)
+    per_lane = 8 + 2 * state + (4 if source == "flat" else 0)
+    return (steps * (wire.nbytes + side) + int(touched.sum()) * per_lane + extra,
+            steps)
+
+
+def check_list_case(label: str, eng, resident, source: str, seed: int,
+                    timed: bool) -> dict:
+    """The list kernel against its plain version over every work list of the
+    corpus's plan, from a random slab and ordinals (near int32 max), byte for
+    byte; with ``timed``, its device time per launch and per replay (both
+    lists), the wrapper's time per replay and the plain version's."""
+    import torch
+
+    from surge_tpu_torch.replay import fold_kernels
+
+    plan = eng._plan_for(resident)
+    wire = eng._wire(frozenset(resident.derived_key.items()))
+    rng = np.random.default_rng(seed)
+    slab = {}
+    for f in eng.spec.registry.state.fields:
+        dt = np.dtype(f.dtype)
+        if dt == np.bool_:
+            col = rng.integers(0, 2, size=resident.b_pad).astype(bool)
+        elif dt == np.float32:
+            col = rng.standard_normal(resident.b_pad).astype(np.float32)
+        else:
+            col = rng.integers(-(1 << 31), 1 << 31, size=resident.b_pad,
+                               dtype=np.int64).astype(np.int32)
+        slab[f.name] = torch.from_numpy(col).cuda()
+    ordv = rng.integers(0, 1 << 31, size=resident.b_pad, dtype=np.int64)
+    ordv[:3] = np.iinfo(np.int32).max
+    ord_d = torch.from_numpy(ordv.astype(np.int32)).cuda()
+    calls = []
+    for bs, i0s, t_bases in ((plan.bs_big, plan.big_i0, plan.big_tb),
+                             (plan.bs_small, plan.small_i0, plan.small_tb)):
+        if not len(i0s):
+            continue
+        if source == "dense":
+            words, sides = eng._dense_tiles(resident, plan, bs, i0s, t_bases)
+            starts = None
+        else:
+            words, sides = resident.flat_wire, resident.flat_side
+            starts = resident.starts_dev
+        i0s_d, tb_d, schedule = eng._work_list(resident, plan, bs, i0s, t_bases)
+        calls.append(((words, sides, resident.lens_dev, ord_d, i0s_d, tb_d),
+                      dict(width=plan.width, bs=bs, spec=eng.spec, wire=wire,
+                           starts=starts), schedule))
+    got = {f: v.clone() for f, v in slab.items()}
+    want = {f: v.clone() for f, v in slab.items()}
+    for args, kw, schedule in calls:
+        fold_kernels.tile_fold_list(got, *args, schedule=schedule, **kw)
+        fold_kernels.tile_fold_list_reference(want, *args, **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name in slab:
+        g, w = got[name].cpu().numpy(), want[name].cpu().numpy()
+        if g.tobytes() != w.tobytes():
+            raise AssertionError(
+                f"list fold {label} ({source}): field {name!r} differs from "
+                f"the plain version at {int(np.flatnonzero(g != w)[0])}")
+        err = max(err, float(np.abs(g.astype(np.float64) - w.astype(np.float64)).max()))
+    nbytes, steps = list_work(eng, resident, plan, source)
+    row = {"case": label, "source": source, "width": plan.width,
+           "bs_big": plan.bs_big, "bs_small": plan.bs_small,
+           "tiles": [len(plan.big_i0), len(plan.small_i0)],
+           "launches_per_replay": len(calls), "max_abs_err": err,
+           "bytes": nbytes, "valid_steps": steps}
+    if timed:
+        def replay_lists():
+            for args, kw, schedule in calls:
+                fold_kernels.tile_fold_list(got, *args, schedule=schedule, **kw)
+
+        def replay_lists_plain():
+            for args, kw, _ in calls:
+                fold_kernels.tile_fold_list_reference(got, *args, **kw)
+
+        per_launch, traced = device_kernel_times(replay_lists, 20, "list_fold")
+        per_replay = None if per_launch is None else per_launch * len(calls)
+        call_ms = cuda_ms(replay_lists, 5, 5)
+        plain_ms = cuda_ms(replay_lists_plain, 1, 1)
+        bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops_ms = steps * 12 / INT32_OPS_PER_S * 1e3
+        row.update({
+            # device time from the profiler where the trace has it, else
+            # the wrapper's per-replay time from CUDA events
+            "ms": per_replay if per_replay is not None else call_ms,
+            "ms_per_launch": per_launch,
+            "ms_source": "profiler" if per_replay is not None else "events",
+            "launches_traced": traced, "launches_run": 20 * len(calls),
+            "call_ms": call_ms,
+            # the plain version repeats the kernel's arithmetic in eager
+            # torch, tile by tile: a correctness yardstick, not a speed one
+            "plain_ms": plain_ms,
+            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+            "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"})
+    log("phase1-list " + json.dumps(row))
+    return row
+
+
+def phase_list_kernel(bench_events) -> dict:
+    """K1's list fold against its plain version: the bench plan (counter,
+    derived ordinal, dense, as the cold replay runs it) and the cut cases
+    under both sources."""
+    import torch
+
+    from surge_tpu_torch.config import Config
+    from surge_tpu_torch.models import bank_account, counter
+    from surge_tpu_torch.replay.engine import ReplayEngine
+
+    specs = {"counter/derived": counter, "counter/side": counter,
+             "bank_account": bank_account}
+    rows = []
+    cfg = Config(overrides=BENCH_CONFIG)
+    eng = ReplayEngine(counter.make_replay_spec(), config=cfg)
+    resident = eng.upload_resident(eng.pack_resident(bench_events))
+    rows.append(check_list_case("counter/derived bench", eng, resident, "dense",
+                                seed=0, timed=True))
+    del eng, resident
+    for i, (label, layout, corpus, over) in enumerate(LIST_CASES):
+        eng = ReplayEngine(specs[layout].make_replay_spec(),
+                           config=Config(overrides=dict(BENCH_CONFIG, **over)))
+        resident = eng.upload_resident(eng.pack_resident(list_corpus(layout, corpus)))
+        for source in ("dense", "flat"):
+            rows.append(check_list_case(label, eng, resident, source,
+                                        seed=i + 1,
+                                        timed=corpus in ("cut", "bank")))
+        del eng, resident
+    torch.cuda.empty_cache()
     return {"rows": rows}
 
 
@@ -392,6 +616,8 @@ def profile_replay(eng, resident) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / wall_us if wall_us else None,
+            "list_fold_traced": sum(v[1] for n, v in by_name.items()
+                                    if "list_fold" in n),
             "top_kernels": [{"name": n[:80], "ms": v[0] / 1e3, "count": v[1]}
                             for n, v in top]}
 
@@ -407,7 +633,8 @@ def drive_main_path(corpus, layout: str, card: str) -> dict:
     cfg = Config(overrides=dict(BENCH_CONFIG, **{
         "surge.replay.resident-layout": layout}))
     torch.cuda.reset_peak_memory_stats()
-    fold_kernels.LAUNCHES["tile_scan"] = 0
+    for k in fold_kernels.LAUNCHES:
+        fold_kernels.LAUNCHES[k] = 0
     eng = ReplayEngine(counter.make_replay_spec(), config=cfg)
     t0 = time.perf_counter()
     wire = eng.pack_resident(corpus.events)
@@ -417,13 +644,21 @@ def drive_main_path(corpus, layout: str, card: str) -> dict:
     eng.warm_resident(resident)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
+    plan = eng._plan_for(resident)
+    n_lists = int(len(plan.big_i0) > 0) + int(len(plan.small_i0) > 0)
     folds = []
-    for _ in range(3):
+    for _ in range(5):
         w0 = eng.stats["windows"]
+        l0 = fold_kernels.LAUNCHES["tile_fold_list"]
         f0 = time.perf_counter()
         res = eng.replay_resident(resident)  # ends in the device→host pull
         folds.append(time.perf_counter() - f0)
         tiles = eng.stats["windows"] - w0
+        if fold_kernels.LAUNCHES["tile_fold_list"] - l0 != n_lists:
+            raise AssertionError(
+                f"layout {layout}: a replay launched the list fold "
+                f"{fold_kernels.LAUNCHES['tile_fold_list'] - l0} times, not "
+                f"once per non-empty work list ({n_lists})")
         if not (np.array_equal(res.states["count"].astype(np.int64),
                                corpus.expected_count)
                 and np.array_equal(res.states["version"],
@@ -431,15 +666,24 @@ def drive_main_path(corpus, layout: str, card: str) -> dict:
             bad = np.flatnonzero(res.states["count"] != corpus.expected_count)
             raise AssertionError(f"layout {layout}: states differ from the "
                                  f"closed form at {bad[:5]}")
-    launches = fold_kernels.LAUNCHES["tile_scan"]
+    launches = dict(fold_kernels.LAUNCHES)
     if eng.tile_backend != "pallas":
         raise AssertionError(f"tile backend resolved to {eng.tile_backend!r}, "
                              "not the kernel")
-    if launches <= 0:
-        raise AssertionError("the main path launched K1 no time")
-    plan = eng._plan_for(resident)
-    log("phase2-profile " + json.dumps(dict(profile_replay(eng, resident),
-                                            card=card, layout=layout)))
+    if launches["tile_fold_list"] <= 0:
+        raise AssertionError("the main path launched K1's list fold no time")
+    if launches["tile_scan"] != 0:
+        raise AssertionError(f"the cold replay launched K1's per-tile entry "
+                             f"{launches['tile_scan']} times")
+    # the fold's device time per replay from CUDA events around the work
+    # lists' launches alone (the profiler's trace can miss a launch made
+    # through ctypes); launches made here are not the main path's
+    slab, ord_d = eng._fresh_slab(resident.b_pad)
+    fold_device_ms = cuda_ms(lambda: eng._run_tiles(resident, plan, slab, ord_d),
+                             5, 5)
+    log("phase2-profile " + json.dumps(dict(
+        profile_replay(eng, resident), list_fold_launched=n_lists,
+        fold_device_ms=fold_device_ms, card=card, layout=layout)))
     row = {
         "card": card, "layout": layout,
         "dense": eng._use_dense(resident, plan),
@@ -448,7 +692,10 @@ def drive_main_path(corpus, layout: str, card: str) -> dict:
         "events_per_s_median": corpus.num_events / statistics.median(folds),
         "pack_s": t1 - t0, "upload_s": t2 - t1, "warm_s": t3 - t2,
         "fold_s": folds, "pad_ratio": res.padded_events / corpus.num_events,
-        "tiles_per_replay": tiles, "k1_launches": launches,
+        "tiles_per_replay": tiles, "lists_per_replay": n_lists,
+        "fold_device_ms": fold_device_ms,
+        "list_launches": launches["tile_fold_list"],
+        "k1_tile_launches": launches["tile_scan"],
         "wire_bytes": resident.wire_bytes,
         "device_mem_peak_bytes": torch.cuda.max_memory_allocated(),
     }
@@ -872,8 +1119,10 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
                              f"{plane.fallback_causes}")
     if plane.stats["evictions"] <= 0:
         raise AssertionError("no round evicted")
-    if seed_launches["tile_scan"] <= 0:
-        raise AssertionError("the seed launched K1 no time")
+    if seed_launches["tile_fold_list"] <= 0:
+        raise AssertionError("the seed launched K1's list fold no time")
+    if seed_launches["tile_scan"] != 0:
+        raise AssertionError("the seed launched K1's per-tile entry")
     key = "ragged_fold" if dispatch == "bucketed" else "tile_scan"
     if refresh_launches[key] <= 0:
         raise AssertionError(f"the refresh rounds launched {key} no time")
@@ -945,18 +1194,21 @@ def main() -> int:
     bs_big = probe.batch_size
     bs_small = max(8, bs_big // 8)
 
-    k1 = k2 = None
+    corpus = None
+    if phases & {1, 2}:
+        t0 = time.perf_counter()
+        corpus = synth_counter_corpus(1_000_000, 100_000_000, seed=0)
+        log(f"phase1 corpus_s: {time.perf_counter() - t0:.3f}")
+    k1 = klist = k2 = None
     if 1 in phases:
         k1 = phase_kernels(width, [bs_big, bs_small])
+        klist = phase_list_kernel(corpus.events)
         k2 = phase_ragged_kernel()
     main_rows = []
     if 2 in phases:
-        t0 = time.perf_counter()
-        corpus = synth_counter_corpus(1_000_000, 100_000_000, seed=0)
-        log(f"phase2 corpus_s: {time.perf_counter() - t0:.3f}")
         main_rows.append(drive_main_path(corpus, "auto", card))
         main_rows.append(drive_main_path(corpus, "flat", card))
-        del corpus
+    del corpus
     if 3 in phases:
         phase_resume_and_bank(card)
     plane = None
@@ -969,8 +1221,10 @@ def main() -> int:
         main_p = plane["main"] if plane else None
         dense_p = plane["dense"] if plane else None
         k1_paths = {
-            "cold_replay_auto": main_rows[0]["k1_launches"] if main_rows else None,
-            "cold_replay_flat": main_rows[1]["k1_launches"] if main_rows else None,
+            "cold_replay_auto": (main_rows[0]["k1_tile_launches"] if main_rows
+                                 else None),
+            "cold_replay_flat": (main_rows[1]["k1_tile_launches"] if main_rows
+                                 else None),
             "plane_seed": main_p["seed_launches"]["tile_scan"] if plane else None,
             "plane_refresh": (main_p["refresh_launches"]["tile_scan"]
                               if plane else None),
@@ -978,6 +1232,16 @@ def main() -> int:
                                  if plane else None),
             "plane_dense_refresh": (dense_p["refresh_launches"]["tile_scan"]
                                     if plane else None),
+        }
+        list_paths = {
+            "cold_replay_auto": (main_rows[0]["list_launches"] if main_rows
+                                 else None),
+            "cold_replay_flat": (main_rows[1]["list_launches"] if main_rows
+                                 else None),
+            "plane_seed": (main_p["seed_launches"]["tile_fold_list"]
+                           if plane else None),
+            "plane_dense_seed": (dense_p["seed_launches"]["tile_fold_list"]
+                                 if plane else None),
         }
         k2_paths = {"plane_refresh": (main_p["refresh_launches"]["ragged_fold"]
                                       if plane else None)}
@@ -996,6 +1260,22 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None,
         }]
+        # the list fold's line: one cold replay's work lists on the bench
+        # plan (counter, derived ordinal, dense), both launches together
+        head = klist["rows"][0]
+        kernels.append({
+            "name": "tile_fold_list",
+            "route": "cuda",
+            "source": "surge_tpu_torch/csrc/tile_scan.cu",
+            "replaces": "surge_tpu/replay/pallas_fold.py:86",
+            "launches": total_launches(list_paths),
+            "launches_by_path": list_paths,
+            "max_abs_err": max(r["max_abs_err"] for r in klist["rows"]),
+            "ms": head["ms"], "ms_per_launch": head["ms_per_launch"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None,  # no PyTorch call folds a per-lane sequence
+        })
         # K2's line: the steady refresh bucket (counter, derived ordinal,
         # bs 4096, width 8, rows 32768)
         head = next(r for r in k2["rows"]

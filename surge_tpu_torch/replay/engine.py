@@ -7,16 +7,16 @@ The counterpart of each reference function keeps its name:
   batch (``switch`` or ``select`` dispatch) and the plain time scan over it.
 - :func:`_make_fold_body`, :func:`_make_tile`, :func:`_make_tile_dense`,
   :func:`_make_densify`: the tile programs. A tile folds events
-  ``[t_base, t_base + width)`` of lanes ``[i0, i0 + bs)``, through the plain
-  torch scan (``tile-backend = xla``) or kernel K1
-  (``surge_tpu_torch.replay.fold_kernels.tile_scan``, ``tile-backend = pallas``).
+  ``[t_base, t_base + width)`` of lanes ``[i0, i0 + bs)``.
 - :class:`ReplayEngine`: ``pack_resident`` → ``upload_resident`` →
   ``warm_resident`` → ``replay_resident``, the cold-replay main path.
 
 Where the reference ran one ``fori_loop`` over a device-resident work list,
-this runs a Python loop over the plan's real tiles, writing each tile's carry
-into the state slab in place. A caller's ``init_carry`` is copied, never
-written to.
+the kernel backend (``tile-backend = pallas``) folds each of the plan's two
+work lists into the state slab in place with one launch of K1's list fold
+(``surge_tpu_torch.replay.fold_kernels.tile_fold_list``); the plain backend
+(``xla``) runs a Python loop over the plan's real tiles through the plain
+torch scan. A caller's ``init_carry`` is copied, never written to.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from surge_tpu_torch.codec.wire import WireFormat, torch_dtype
 from surge_tpu_torch.config import Config, default_config
 from surge_tpu_torch.engine.model import ReplaySpec, StateTree
 from surge_tpu_torch.replay import fold_kernels
+from surge_tpu_torch.replay.fold_kernels import _lane_range, _slab_index
 
 
 def make_step_fn(spec: ReplaySpec, dispatch: str = "switch"
@@ -132,30 +133,15 @@ class ResidentCorpus:
 #: small tile-width cap still satisfies engines configured with a larger one
 _WIRE_GUARD_MIN = 8192
 
-#: t_base sentinel of the reference's dense work-list padding: past every real
-#: lane length yet far from int32 overflow. This engine loops over real tiles
-#: only, but the kernel branch of the fold body keeps the reference's clamp of
-#: t_base before the ordinal add (see _make_fold_body).
-_NOOP_TILE_T = np.int32(1 << 29)
-
-
 def _make_fold_body(spec: ReplaySpec, wire: WireFormat, width: int,
-                    dispatch: str, tile_backend: str):
+                    dispatch: str):
     """The tile-interior fold shared by the flat-gather and dense-layout
-    resident tiles: ``(carry {f: [bs]}, words [width, bs], sides {n: [width, bs]},
-    lens [bs], ord_base [bs], t_base) -> carry``. Two lowerings: the plain
-    torch time scan (``xla``) and kernel K1 (``pallas``)."""
+    resident tiles of the plain backend: ``(carry {f: [bs]}, words [width, bs],
+    sides {n: [width, bs]}, lens [bs], ord_base [bs], t_base) -> carry``, the
+    plain torch time scan."""
     step = make_step_fn(spec, dispatch)
 
     def fold_body(carry, words, sides, lens, ord_base, t_base: int):
-        if tile_backend == "pallas":
-            # relative time. t_base is clamped before the ordinal add, as in
-            # the reference: a _NOOP_TILE_T sentinel would otherwise push
-            # ord_base + t_base past 2^30; real tiles always have
-            # t_base < max lane length << 2^29, where the clamp is the identity
-            t_ord = min(t_base, int(_NOOP_TILE_T) - 1)
-            return fold_kernels.tile_scan(carry, words, sides, lens - t_base,
-                                          ord_base + t_ord, spec=spec, wire=wire)
         for t in range(width):
             tt = t_base + t
             events = wire.decode_words(words[t], {n: s[t] for n, s in sides.items()},
@@ -166,31 +152,13 @@ def _make_fold_body(spec: ReplaySpec, wire: WireFormat, width: int,
     return fold_body
 
 
-def _slab_index(starts: torch.Tensor, t_base: int, width: int, rows: int
-                ) -> torch.Tensor:
-    """Time-major row indices ``[width, bs]`` of each lane's slab
-    ``[starts + t_base, starts + t_base + width)``. A start past ``rows - width``
-    is clamped, exactly as ``jax.lax.dynamic_slice`` clamps it: only finished
-    or padding lanes reach that far, and their slots decode under a False
-    mask. Live lanes never clamp: their slab ends within the guard rows."""
-    s0 = (starts.to(torch.int64) + t_base).clamp_(0, rows - width)
-    return s0[None, :] + torch.arange(width, device=starts.device)[:, None]
-
-
-def _lane_range(i0: int, bs: int, b_pad: int) -> slice:
-    # a torch slice past b_pad would silently truncate where JAX clamped
-    if i0 < 0 or i0 + bs > b_pad:
-        raise ValueError(f"tile lanes [{i0}, {i0 + bs}) outside the slab [0, {b_pad})")
-    return slice(i0, i0 + bs)
-
-
 def _make_tile(spec: ReplaySpec, wire: WireFormat, width: int, bs: int,
-               dispatch: str, tile_backend: str):
+               dispatch: str):
     """The flat-gather tile: ``(state_slab {f: [b_pad]}, flat_wire u8
     [N, nbytes], side_flat, starts [b_pad], lens [b_pad], ord_base [b_pad], i0,
     t_base)``; folds lanes ``[i0, i0 + bs)`` over ``[t_base, t_base + width)``
     and writes their carry back into the slab in place."""
-    fold_body = _make_fold_body(spec, wire, width, dispatch, tile_backend)
+    fold_body = _make_fold_body(spec, wire, width, dispatch)
     nbytes = wire.nbytes
 
     def tile(slab, flat_wire, side_flat, starts_all, lens_all, ord_all,
@@ -211,12 +179,12 @@ def _make_tile(spec: ReplaySpec, wire: WireFormat, width: int, bs: int,
 
 
 def _make_tile_dense(spec: ReplaySpec, wire: WireFormat, width: int, bs: int,
-                     dispatch: str, tile_backend: str):
+                     dispatch: str):
     """The dense-layout tile: reads tile ``k`` from the buffers
     :func:`_make_densify` pre-gathered (``dense_words u8 [k_n, width, bs,
     nbytes]``, ``dense_sides {n: [k_n, width, bs]}``) instead of gathering
     per-lane rows from the flat corpus each pass."""
-    fold_body = _make_fold_body(spec, wire, width, dispatch, tile_backend)
+    fold_body = _make_fold_body(spec, wire, width, dispatch)
     nbytes = wire.nbytes
 
     def tile(slab, dense_words, dense_sides, lens_all, ord_all, i0: int,
@@ -460,8 +428,10 @@ class ReplayEngine:
                 f"unknown surge.replay.resident-layout "
                 f"{self._resident_layout!r} (auto|flat|dense)")
         self._dense_cap_mb = self.config.get_int("surge.replay.dense-cap-mb", 2048)
-        # tile programs per (derived key, width, bs, layout)
+        # plain-backend tile programs per (derived key, width, bs, layout),
+        # and the wire format per derived key
         self._tiles: dict = {}
+        self._wires: dict = {}
         # host-side phase accounting: seconds spent packing, uploading and
         # densifying, and tiles dispatched
         self.stats = {"pack_s": 0.0, "h2d_s": 0.0, "windows": 0,
@@ -776,10 +746,12 @@ class ReplayEngine:
                    ) -> None:
         """Fold the plan's tiles into ``slab`` in place: all big tiles, then
         all small ones (per-lane order holds because a lane only ever moves
-        big→small as the active prefix shrinks). ``limit`` folds only the
-        first tiles of each list (warm-up)."""
+        big→small as the active prefix shrinks). The kernel backend folds
+        each list with one list-fold call; the plain backend loops over its
+        tiles. ``limit`` folds only the first tiles of each list (warm-up)."""
         key = frozenset(resident.derived_key.items())
         use_dense = self._use_dense(resident, plan)
+        kernel = self.tile_backend == "pallas"
         for bs, i0s, t_bases in ((plan.bs_big, plan.big_i0, plan.big_tb),
                                  (plan.bs_small, plan.small_i0, plan.small_tb)):
             k_n = len(i0s) if limit is None else min(limit, len(i0s))
@@ -787,30 +759,65 @@ class ReplayEngine:
                 continue
             if limit is None:
                 self.stats["windows"] += k_n
+            if use_dense:
+                words, sides = self._dense_tiles(resident, plan, bs, i0s, t_bases)
+                starts = None
+            else:
+                words, sides = resident.flat_wire, resident.flat_side
+                starts = resident.starts_dev
+            if kernel:
+                i0s_d, tb_d, schedule = self._work_list(resident, plan, bs, i0s,
+                                                        t_bases)
+                fold_kernels.tile_fold_list(
+                    slab, words, sides, resident.lens_dev, ord_d, i0s_d, tb_d,
+                    width=plan.width, bs=bs, spec=self.spec,
+                    wire=self._wire(key), starts=starts, k_n=k_n,
+                    schedule=schedule)
+                continue
+            tile = self._tile_program(key, plan.width, bs, dense=use_dense)
             work = zip(i0s[:k_n].tolist(), t_bases[:k_n].tolist())
             if use_dense:
-                dw, ds = self._dense_tiles(resident, plan, bs, i0s, t_bases)
-                tile = self._tile_program(key, plan.width, bs, dense=True)
                 for k, (i0, tb) in enumerate(work):
-                    tile(slab, dw, ds, resident.lens_dev, ord_d, i0, tb, k)
+                    tile(slab, words, sides, resident.lens_dev, ord_d, i0, tb, k)
             else:
-                tile = self._tile_program(key, plan.width, bs, dense=False)
                 for i0, tb in work:
-                    tile(slab, resident.flat_wire, resident.flat_side,
-                         resident.starts_dev, resident.lens_dev, ord_d, i0, tb)
+                    tile(slab, words, sides, starts, resident.lens_dev, ord_d,
+                         i0, tb)
+
+    def _wire(self, key: frozenset) -> WireFormat:
+        """The wire format for one derived-column declaration (one per engine,
+        so the kernels' cached decode arguments are found again)."""
+        wire = self._wires.get(key)
+        if wire is None:
+            wire = self._wires[key] = WireFormat(self.spec.registry, dict(key))
+        return wire
 
     def _tile_program(self, key: frozenset, width: int, bs: int, dense: bool):
-        """The tile function for one derived-column declaration and geometry
-        (built once per engine)."""
-        ckey = (key, width, bs, dense, self.tile_backend)
+        """The plain backend's tile function for one derived-column
+        declaration and geometry (built once per engine)."""
+        ckey = (key, width, bs, dense)
         tile = self._tiles.get(ckey)
         if tile is None:
-            wire = WireFormat(self.spec.registry, dict(key))
             make = _make_tile_dense if dense else _make_tile
-            tile = make(self.spec, wire, width, bs, self._dispatch,
-                        self.tile_backend)
+            tile = make(self.spec, self._wire(key), width, bs, self._dispatch)
             self._tiles[ckey] = tile
         return tile
+
+    def _work_list(self, resident: ResidentCorpus, plan: ResidentPlan, bs: int,
+                   i0s: np.ndarray, t_bases: np.ndarray):
+        """Build-or-fetch one work list on the device for the list fold:
+        ``(i0s, t_bases, (blk_ids, blk_off, blk_tiles))``, the last its
+        per-lane-block schedule (:func:`fold_kernels.list_schedule`); cached
+        on the corpus beside the dense tiles."""
+        ckey = ("list", plan.width, bs, np.asarray(i0s, np.int32).tobytes(),
+                np.asarray(t_bases, np.int32).tobytes())
+        hit = resident.cache.get(ckey)
+        if hit is None:
+            up = lambda a: _to_device(np.asarray(a, np.int32), self.device)  # noqa: E731
+            sched = fold_kernels.list_schedule(i0s, bs, resident.b_pad)
+            hit = resident.cache[ckey] = (up(i0s), up(t_bases),
+                                          tuple(up(a) for a in sched))
+        return hit
 
     def _plan_for(self, resident: ResidentCorpus) -> ResidentPlan:
         """The corpus's tile plan, cached on the corpus."""
@@ -869,7 +876,7 @@ class ReplayEngine:
         hit = resident.cache.get(ckey)
         if hit is not None:
             return hit
-        wire = WireFormat(self.spec.registry, dict(resident.derived_key))
+        wire = self._wire(frozenset(resident.derived_key.items()))
         t0 = time.perf_counter()
         entry = _make_densify(wire, plan.width, bs)(
             resident.flat_wire, resident.flat_side, resident.starts_dev,
@@ -901,8 +908,8 @@ class ReplayEngine:
     def warm_resident(self, resident: ResidentCorpus) -> None:
         """Do the one-time work of a replay before it is timed: build and load
         the kernel (when the backend is the kernel), run the dense layout's
-        tile gather, and fold the first tile of each work list into a
-        discarded slab."""
+        tile gather, build each work list's schedule, and fold the first tile
+        of each work list into a discarded slab."""
         b = resident.lengths.shape[0]
         if b == 0:
             return

@@ -17,10 +17,18 @@ ordinal ``ord[b] + t + 1``. It computes what the Pallas kernel
 ``surge_tpu/replay/pallas_fold.py:make_ragged_fold`` computes (``starts`` are
 never negative there; a negative start clamps to row 0 here).
 
+``tile_fold_list(slab, words, sides, lens, ord, i0s, t_bases, *, width, bs,
+...)`` folds a whole work list of the resident replay into the state slab in
+place, in one launch (K1's second entry): tile ``k`` folds events
+``[t_bases[k], t_bases[k] + width)`` of lanes ``[i0s[k], i0s[k] + bs)``, in
+list order, from the dense tile buffers (``words u8 [k, width, bs, nbytes]``)
+or from the flat corpus (``words u8 [rows, nbytes]`` and ``starts``).
+
 On CPU tensors each wrapper runs its plain version (:func:`tile_scan_reference`,
-:func:`ragged_fold_reference`); on CUDA tensors it launches the hand-written
-kernel (``surge_tpu_torch/csrc/tile_scan.cu``, ``csrc/ragged_fold.cu``) or
-raises. ``LAUNCHES[name]`` counts kernel launches, and nothing else.
+:func:`tile_fold_list_reference`, :func:`ragged_fold_reference`); on CUDA
+tensors it launches the hand-written kernel (``surge_tpu_torch/csrc/tile_scan.cu``,
+``csrc/ragged_fold.cu``) or raises. ``LAUNCHES[name]`` counts kernel launches,
+and nothing else.
 """
 
 from __future__ import annotations
@@ -47,7 +55,18 @@ KERNEL_STEPS: dict[str, tuple[tuple[str, ...], tuple[str, ...]]] = {
 }
 
 #: kernel launches per wrapper (reset by the caller; never by this module)
-LAUNCHES: dict[str, int] = {"tile_scan": 0, "ragged_fold": 0}
+LAUNCHES: dict[str, int] = {"tile_scan": 0, "tile_fold_list": 0,
+                            "ragged_fold": 0}
+
+#: lanes per block of the list fold (``kThreads`` in csrc/fold_common.cuh):
+#: the granularity of its schedule
+LIST_LANE_BLOCK = 256
+
+#: t_base sentinel of the reference's dense work-list padding: past every real
+#: lane length yet far from int32 overflow. The replay folds real tiles only,
+#: but keeps the reference's clamp of t_base before the ordinal add
+#: (``kNoopTileT`` in csrc/tile_scan.cu)
+_NOOP_TILE_T = np.int32(1 << 29)
 
 _MAX_COLS = 8
 _MAX_STATE = 8
@@ -74,6 +93,15 @@ class _StateArgs(ctypes.Structure):
                 ("kind", ctypes.c_int32 * _MAX_STATE),
                 ("in_", ctypes.c_void_p * _MAX_STATE),
                 ("out", ctypes.c_void_p * _MAX_STATE)]
+
+
+class _ListArgs(ctypes.Structure):
+    # mirrors struct ListArgs in csrc/tile_scan.cu
+    _fields_ = [(name, ctypes.c_int32) for name in (
+        "width", "bs", "b_pad", "k_n", "n_blk", "nbytes", "dense", "aligned")
+    ] + [("rows", ctypes.c_int64)] + [(name, ctypes.c_void_p) for name in (
+        "i0s", "t_bases", "blk_ids", "blk_off", "blk_tiles", "lens", "ord",
+        "starts", "words")]
 
 
 def tile_scan_reference(carry: Mapping[str, torch.Tensor], words: torch.Tensor,
@@ -118,6 +146,137 @@ def tile_scan(carry: Mapping[str, torch.Tensor], words: torch.Tensor,
         raise RuntimeError(f"tile_scan kernel launch failed: cudaError_t {err}")
     LAUNCHES["tile_scan"] += 1
     return out
+
+
+def _slab_index(starts: torch.Tensor, t_base: int, width: int, rows: int
+                ) -> torch.Tensor:
+    """Time-major row indices ``[width, bs]`` of each lane's slab
+    ``[starts + t_base, starts + t_base + width)``. A start past ``rows - width``
+    is clamped, exactly as ``jax.lax.dynamic_slice`` clamps it: only finished
+    or padding lanes reach that far, and their slots decode under a False
+    mask. Live lanes never clamp: their slab ends within the guard rows."""
+    s0 = (starts.to(torch.int64) + t_base).clamp_(0, rows - width)
+    return s0[None, :] + torch.arange(width, device=starts.device)[:, None]
+
+
+def _lane_range(i0: int, bs: int, b_pad: int) -> slice:
+    # a torch slice past b_pad would silently truncate where JAX clamped
+    if i0 < 0 or i0 + bs > b_pad:
+        raise ValueError(f"tile lanes [{i0}, {i0 + bs}) outside the slab [0, {b_pad})")
+    return slice(i0, i0 + bs)
+
+
+def list_schedule(i0s: np.ndarray, bs: int, b_pad: int
+                  ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The list fold's per-lane-block schedule, a CSR over the lane blocks
+    (``LIST_LANE_BLOCK`` slab lanes each) that some tile covers:
+    ``(blk_ids [n], blk_off [n + 1], blk_tiles [blk_off[n]])``, all int32.
+    Block ``blk_ids[i]`` folds tiles ``blk_tiles[blk_off[i]:blk_off[i + 1]]``,
+    ascending in list order (so each lane's tiles run in the list's order)."""
+    i0s = np.asarray(i0s, dtype=np.int64)
+    if len(i0s) and (i0s.min() < 0 or i0s.max() + bs > b_pad):
+        raise ValueError(f"a tile of {bs} lanes lies outside the slab [0, {b_pad})")
+    lb = LIST_LANE_BLOCK
+    first = i0s // lb
+    counts = (i0s + bs - 1) // lb - first + 1
+    tiles = np.repeat(np.arange(len(i0s), dtype=np.int64), counts)
+    ends = np.cumsum(counts)
+    blks = np.repeat(first - (ends - counts), counts) + np.arange(len(tiles))
+    order = np.argsort(blks, kind="stable")  # stable: list order per block
+    blks, tiles = blks[order], tiles[order]
+    ids, per_blk = np.unique(blks, return_counts=True)
+    off = np.zeros(len(ids) + 1, dtype=np.int64)
+    np.cumsum(per_blk, out=off[1:])
+    return ids.astype(np.int32), off.astype(np.int32), tiles.astype(np.int32)
+
+
+def tile_fold_list_reference(slab: Mapping[str, torch.Tensor],
+                             words: torch.Tensor,
+                             sides: Mapping[str, torch.Tensor],
+                             lens: torch.Tensor, ord: torch.Tensor,
+                             i0s: torch.Tensor, t_bases: torch.Tensor, *,
+                             width: int, bs: int, spec: ReplaySpec,
+                             wire: WireFormat, starts: torch.Tensor | None = None,
+                             k_n: int | None = None) -> None:
+    """The plain torch version of the list fold: tiles ``[0, k_n)`` of the
+    list one after another through :func:`tile_scan_reference`, each
+    gathering its lanes' carry, folding with ``lens_rel = lens - t_base`` and
+    the ordinal base ``ord + min(t_base, _NOOP_TILE_T - 1)``, and writing the
+    carry back into ``slab`` in place. Dense source: ``words u8 [k, width, bs,
+    nbytes]``, ``sides {n: [k, width, bs]}``; flat source (``starts`` given):
+    ``words u8 [rows, nbytes]``, ``sides {n: [rows]}`` gathered through
+    :func:`_slab_index`."""
+    nbytes = wire.nbytes
+    k_n = len(i0s) if k_n is None else k_n
+    for k, (i0, tb) in enumerate(zip(i0s[:k_n].tolist(), t_bases[:k_n].tolist())):
+        lanes = _lane_range(i0, bs, lens.shape[0])
+        if starts is None:
+            tile_words = words[k].reshape(width * bs, nbytes)
+            tile_sides = {n: s[k] for n, s in sides.items()}
+        else:
+            idx = _slab_index(starts[lanes], tb, width, words.shape[0])
+            tile_words = words[idx.reshape(-1)].reshape(width * bs, nbytes)
+            tile_sides = {n: s[idx] for n, s in sides.items()}
+        carry = {f: v[lanes] for f, v in slab.items()}
+        out = tile_scan_reference(
+            carry, wire.expand_flat(tile_words).reshape(width, bs), tile_sides,
+            lens[lanes] - tb, ord[lanes] + min(tb, int(_NOOP_TILE_T) - 1),
+            spec=spec, wire=wire)
+        for f, v in slab.items():
+            v[lanes] = out[f]
+
+
+def tile_fold_list(slab: Mapping[str, torch.Tensor], words: torch.Tensor,
+                   sides: Mapping[str, torch.Tensor], lens: torch.Tensor,
+                   ord: torch.Tensor, i0s: torch.Tensor, t_bases: torch.Tensor,
+                   *, schedule: tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                   width: int, bs: int, spec: ReplaySpec, wire: WireFormat,
+                   starts: torch.Tensor | None = None, k_n: int | None = None
+                   ) -> None:
+    """Fold tiles ``[0, k_n)`` of one work list into ``slab`` in place: the
+    plain version for CPU tensors, one kernel launch for CUDA tensors (see the
+    module docstring). ``i0s``/``t_bases`` are int32 ``[k]`` on the slab's
+    device; ``schedule`` is :func:`list_schedule` on that device (the kernel's
+    blocks; the plain version walks the list itself)."""
+    if words.device.type == "cpu":
+        tile_fold_list_reference(slab, words, sides, lens, ord, i0s, t_bases,
+                                 width=width, bs=bs, spec=spec, wire=wire,
+                                 starts=starts, k_n=k_n)
+        return
+    if words.device.type != "cuda":
+        raise ValueError(f"tile_fold_list runs on cpu or cuda tensors, got "
+                         f"{words.device}")
+    step_id, layout = _decode_args(spec.kernel_step, spec.registry, wire)
+    b_pad, k_all = _check_list(slab, words, sides, lens, ord, i0s, t_bases,
+                               starts, width, bs, spec, wire)
+    k_n = k_all if k_n is None else int(k_n)
+    if not 0 <= k_n <= k_all:
+        raise ValueError(f"k_n {k_n} outside the list's {k_all} tiles")
+    blk_ids, blk_off, blk_tiles = schedule
+    for name, t in zip(("blk_ids", "blk_off", "blk_tiles"), schedule):
+        _need(t, name, tuple(t.shape), torch.int32, words.device)
+    if blk_off.shape != (blk_ids.shape[0] + 1,):
+        raise ValueError("schedule: blk_off must hold one more entry than blk_ids")
+    if k_n == 0 or blk_ids.shape[0] == 0:
+        return
+    dec, sa = _decode_with_sides(layout, sides, spec), _state_args(slab, slab, spec)
+    la = _ListArgs(width=width, bs=bs, b_pad=b_pad, k_n=k_n,
+                   n_blk=blk_ids.shape[0], nbytes=wire.nbytes,
+                   dense=int(starts is None),
+                   aligned=int(all(t.data_ptr() % 16 == 0 for t in
+                                   (words, *sides.values()))),
+                   rows=words.shape[0], i0s=i0s.data_ptr(),
+                   t_bases=t_bases.data_ptr(), blk_ids=blk_ids.data_ptr(),
+                   blk_off=blk_off.data_ptr(), blk_tiles=blk_tiles.data_ptr(),
+                   lens=lens.data_ptr(), ord=ord.data_ptr(),
+                   starts=0 if starts is None else starts.data_ptr(),
+                   words=words.data_ptr())
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    err = _library("tile_scan").surge_tile_fold_list(
+        step_id, ctypes.byref(la), ctypes.byref(dec), ctypes.byref(sa), stream)
+    if err != 0:
+        raise RuntimeError(f"tile_fold_list kernel launch failed: cudaError_t {err}")
+    LAUNCHES["tile_fold_list"] += 1
 
 
 def ragged_fold_reference(carry: Mapping[str, torch.Tensor], words: torch.Tensor,
@@ -171,22 +330,35 @@ def ragged_fold(carry: Mapping[str, torch.Tensor], words: torch.Tensor,
 
 def _kernel_args(layout: "_DecodeArgs", carry: Mapping[str, torch.Tensor],
                  sides: Mapping[str, torch.Tensor], spec: ReplaySpec):
-    """The output carry (allocated here) and the kernel's argument structs:
-    a per-call copy of the cached decode layout with the side pointers set,
-    and the state pointers."""
-    dec = _DecodeArgs.from_buffer_copy(layout)  # side pointers are per call
+    """The output carry (allocated here) and the kernel's argument structs."""
+    out = {f.name: torch.empty_like(carry[f.name])
+           for f in spec.registry.state.fields}
+    return (out, _decode_with_sides(layout, sides, spec),
+            _state_args(carry, out, spec))
+
+
+def _decode_with_sides(layout: "_DecodeArgs", sides: Mapping[str, torch.Tensor],
+                       spec: ReplaySpec) -> "_DecodeArgs":
+    """A per-call copy of the cached decode layout with the side pointers set."""
+    dec = _DecodeArgs.from_buffer_copy(layout)
+    for c, name in enumerate(KERNEL_STEPS[spec.kernel_step][1]):
+        if dec.kind[c] == _SIDE:
+            dec.side[c] = sides[name].data_ptr()
+    return dec
+
+
+def _state_args(carry: Mapping[str, torch.Tensor], out: Mapping[str, torch.Tensor],
+                spec: ReplaySpec) -> "_StateArgs":
+    """The state pointers: read from ``carry``, written to ``out`` (the same
+    tensors for a fold in place)."""
     fields = spec.registry.state.fields
-    out = {f.name: torch.empty_like(carry[f.name]) for f in fields}
     sa = _StateArgs()
     sa.n_state = len(fields)
     for i, f in enumerate(fields):
         sa.kind[i] = _STATE_KINDS[np.dtype(f.dtype)]
         sa.in_[i] = carry[f.name].data_ptr()
         sa.out[i] = out[f.name].data_ptr()
-    for c, name in enumerate(KERNEL_STEPS[spec.kernel_step][1]):
-        if dec.kind[c] == _SIDE:
-            dec.side[c] = sides[name].data_ptr()
-    return out, dec, sa
+    return sa
 
 
 @functools.lru_cache(maxsize=64)
@@ -305,6 +477,38 @@ def _check_tile(carry, words, sides, lens_rel, ord_rel, spec, wire
     return width, bs
 
 
+def _check_list(slab, words, sides, lens, ord, i0s, t_bases, starts, width,
+                bs, spec, wire) -> tuple[int, int]:
+    """Device, dtype, shape and contiguity of every list-fold input; returns
+    ``(b_pad, k)``."""
+    dev = words.device
+    nbytes = wire.nbytes
+    if int(width) < 1 or int(bs) < 1:
+        raise ValueError(f"width and bs must be >= 1, got {width}, {bs}")
+    if lens.dim() != 1:
+        raise ValueError(f"lens must be int32 [b_pad], got {tuple(lens.shape)}")
+    b_pad = lens.shape[0]
+    if i0s.dim() != 1:
+        raise ValueError(f"i0s must be int32 [k], got {tuple(i0s.shape)}")
+    k = i0s.shape[0]
+    _need(i0s, "i0s", (k,), torch.int32, dev)
+    _need(t_bases, "t_bases", (k,), torch.int32, dev)
+    _need(lens, "lens", (b_pad,), torch.int32, dev)
+    _need(ord, "ord", (b_pad,), torch.int32, dev)
+    if starts is None:  # dense: the tile buffers of this list
+        _need(words, "words", (k, width, bs, nbytes), torch.uint8, dev)
+        side_shape = (k, width, bs)
+    else:
+        if words.dim() != 2 or words.shape[0] < width:
+            raise ValueError(f"flat words must be uint8 [rows >= width, "
+                             f"{nbytes}], got {tuple(words.shape)}")
+        _need(words, "words", (words.shape[0], nbytes), torch.uint8, dev)
+        _need(starts, "starts", (b_pad,), torch.int32, dev)
+        side_shape = (words.shape[0],)
+    _check_carry_and_sides(slab, sides, b_pad, side_shape, spec, wire, dev)
+    return b_pad, k
+
+
 def _check_ragged(carry, words, sides, starts, lens, ord, width, spec, wire
                   ) -> tuple[int, int]:
     """Device, dtype, shape and contiguity of every K2 input; returns
@@ -341,6 +545,14 @@ def _library(name: str) -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(_DecodeArgs),
             ctypes.POINTER(_StateArgs), ctypes.c_void_p]
         lib.surge_tile_scan.restype = ctypes.c_int
+        lib.surge_tile_fold_list.argtypes = [
+            ctypes.c_int, ctypes.POINTER(_ListArgs), ctypes.POINTER(_DecodeArgs),
+            ctypes.POINTER(_StateArgs), ctypes.c_void_p]
+        lib.surge_tile_fold_list.restype = ctypes.c_int
+        lib.surge_tile_fold_list_args_size.restype = ctypes.c_int
+        if lib.surge_tile_fold_list_args_size() != ctypes.sizeof(_ListArgs):
+            raise RuntimeError("struct ListArgs in csrc/tile_scan.cu and "
+                               "_ListArgs differ in size")
     elif name == "ragged_fold":
         lib.surge_ragged_fold.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
