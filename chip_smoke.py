@@ -8,9 +8,11 @@ first. Phases:
 0. the card's name and power limit, and the kernel build time;
 1. each kernel against its plain torch version on the card, byte for byte, at
    the main paths' shapes, with its time, bound and the plain time: K1's
-   per-tile entry at the cold-replay tiles; K1's list fold over the bench
-   plan's work lists (dense) and, on cut corpora, both sources, three model
-   layouts and the edges (bs_small 8, a batch of 104 lanes, width 512); K2 at
+   per-tile entry at the dense plane's refresh windows (widths 256 and 512,
+   32,768 lanes, chained); K1's list fold over the bench plan's work lists
+   (dense) and, on cut corpora, both sources, three model layouts and the
+   edges (bs_small 8; batches of 104, 256 and 2,000 lanes, whose tiles start
+   and end inside a lane block, staged or loaded per lane; width 512); K2 at
    the refresh buckets (bs, width, rows) = (8, 2, 16), (4096, 8, 32768),
    (65536, 4, 262144) and a chained (8, 512, 4096) window with the starts
    shifted by 512 and 1024, for three model layouts;
@@ -29,7 +31,9 @@ first. Phases:
    K1's list fold, 16 refresh rounds of about 32k events through K2 (evicting and
    re-admitting, with chained windows every fourth round) while a reader
    checks that no row is torn, then every aggregate read back against its
-   closed form; and a smaller plane on the dense dispatch through K1;
+   closed form; and a smaller plane on the dense dispatch through K1's
+   per-tile entry, which is then held against its plain version at every
+   window shape the plane gave it that phase 1 did not check;
 then one JSON line of every kernel's numbers, the card line, and a last line
 ``{"ok": true, "device": {...}}``.
 
@@ -95,20 +99,34 @@ def cuda_ms(fn, repeats: int, inner: int) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, repeats: int, inner: int) -> float:
+    """Device time of one call of ``fn``: the median over ``repeats`` of CUDA
+    events around ``inner`` back-to-back calls, each group queued behind a
+    ~1 ms spin kernel so the host's launch cost leaves no gap in the stream
+    (the spin runs before the start event; warmed up first)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
 def device_kernel_ms(fn, calls: int, name: str) -> float | None:
     """Mean device time of the CUDA kernels whose name contains ``name`` over
     ``calls`` calls of ``fn``, from the profiler's CUPTI trace; None when the
-    trace holds no such kernel time."""
-    per_launch, _ = device_kernel_times(fn, calls, name)
-    return per_launch
-
-
-def device_kernel_times(fn, calls: int, name: str
-                        ) -> tuple[float | None, int]:
-    """(mean device ms per launch, launches traced) of the CUDA kernels whose
-    name contains ``name``, from the profiler's CUPTI trace over ``calls``
-    calls of ``fn``; (None, 0) when the trace holds no such kernel time. The
-    trace can miss launches made through ctypes, so count them, not calls."""
+    trace holds no such kernel time (it holds fewer launches than were made,
+    for a cause not found)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -124,8 +142,8 @@ def device_kernel_times(fn, calls: int, name: str
             total_us += evt.device_time_total
             count += evt.count
     if count == 0 or total_us <= 0:
-        return None, 0
-    return total_us / count / 1e3, count
+        return None
+    return total_us / count / 1e3
 
 
 # -- phase 1: kernel against its plain version ---------------------------------------
@@ -146,35 +164,55 @@ def kernel_cases():
     ]
 
 
-def tile_inputs(spec, wire, width: int, bs: int, seed: int, device):
-    """Random kernel inputs: full 32-bit words (corrupt type ids, the 32nd
-    bit set), padded slots and negative lens_rel, ordinals near int32 max."""
+#: K1's per-tile entry runs on one path: the plane's dense refresh windows
+#: (drive_plane, dispatch "dense"). A round there folds ~8,000 lanes, padded
+#: to _pow8 = 32,768; its longest log (a tail of 17-256 events) sets the
+#: width to 256, and a heavy round's 1,800-event lane sets it to 512 over
+#: four chained windows. Checked shapes: (width, lanes_b, window offset)
+PLANE_WINDOW_LIVE = 8000
+PLANE_WINDOW_SHAPES = [(256, 32768, 0), (512, 32768, 0), (512, 32768, 1024)]
+
+
+def window_inputs(spec, wire, width: int, lanes_b: int, live: int, shift: int,
+                  seed: int, device):
+    """Random K1 inputs laid out as the plane's dense window packs a round
+    (``_pack_windows``): ``live`` lanes of 1-4 events with a 1.25% tail of
+    17-256 and, at width 512, lane 0 with 1,800; lens_rel is the window's
+    counts ``clip(lengths - shift, 0, width)`` and the padding lanes past
+    ``live`` hold 0. On top: full 32-bit words in every slot (corrupt type
+    ids, the 32nd bit set, and garbage in the padded slots that lens_rel
+    masks), random side values and carries, ordinals near int32 max."""
     import torch
 
     rng = np.random.default_rng(seed)
-    words = rng.integers(0, 1 << 32, size=(width, bs), dtype=np.uint64)
+    lengths = np.zeros(lanes_b, dtype=np.int64)
+    lengths[:live] = rng.integers(1, 5, size=live)
+    tail = np.flatnonzero(rng.random(live) < 0.0125)
+    lengths[tail] = rng.integers(17, 257, size=len(tail))
+    if width >= 512:
+        lengths[0] = 1800
+    lens = np.clip(lengths - shift, 0, width).astype(np.int32)
+    words = rng.integers(0, 1 << 32, size=(width, lanes_b), dtype=np.uint64)
     words = words.astype(np.uint32).view(np.int32)
     sides = {}
     for f in wire.side_fields:
         if np.dtype(f.dtype) == np.float32:
-            col = rng.standard_normal((width, bs)).astype(np.float32)
+            col = rng.standard_normal((width, lanes_b)).astype(np.float32)
         else:
-            col = rng.integers(-(1 << 31), 1 << 31, size=(width, bs),
+            col = rng.integers(-(1 << 31), 1 << 31, size=(width, lanes_b),
                                dtype=np.int64).astype(np.int32)
         sides[f.name] = col
-    lens = rng.integers(-width, width + 8, size=bs).astype(np.int32)
-    lens[:4] = (-(1 << 29), 0, width, 1)  # sentinel, empty, full, one
-    ordr = rng.integers(0, 1 << 31, size=bs, dtype=np.int64).astype(np.int32)
+    ordr = rng.integers(0, 1 << 31, size=lanes_b, dtype=np.int64).astype(np.int32)
     ordr[:2] = (np.iinfo(np.int32).max, np.iinfo(np.int32).max - width // 2)
     carry = {}
     for f in spec.registry.state.fields:
         dt = np.dtype(f.dtype)
         if dt == np.bool_:
-            carry[f.name] = rng.integers(0, 2, size=bs).astype(bool)
+            carry[f.name] = rng.integers(0, 2, size=lanes_b).astype(bool)
         elif dt == np.float32:
-            carry[f.name] = rng.standard_normal(bs).astype(np.float32)
+            carry[f.name] = rng.standard_normal(lanes_b).astype(np.float32)
         else:
-            carry[f.name] = rng.integers(-(1 << 31), 1 << 31, size=bs,
+            carry[f.name] = rng.integers(-(1 << 31), 1 << 31, size=lanes_b,
                                          dtype=np.int64).astype(np.int32)
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     return ({k: to(v) for k, v in carry.items()}, to(words),
@@ -194,68 +232,105 @@ def tile_work(spec, wire, args, width: int) -> tuple[int, int]:
     return steps * (4 + side) + bs * (4 + 4 + 2 * state), steps
 
 
-def phase_kernels(width: int, shapes: list[int]) -> dict:
+def check_tile_case(label: str, spec, wire, shape: tuple[int, int, int],
+                    timed: bool) -> dict:
+    """K1's per-tile entry against its plain version at one dense-window
+    shape, byte for byte; with ``timed``, its device time, bound and the
+    plain version's time."""
     import torch
 
     from surge_tpu_torch.replay import fold_kernels
 
+    width, lanes_b, shift = shape
+    args = window_inputs(spec, wire, width, lanes_b,
+                         min(PLANE_WINDOW_LIVE, lanes_b), shift,
+                         seed=width + shift + lanes_b + len(label), device="cuda")
+    kw = dict(spec=spec, wire=wire)
+    out = fold_kernels.tile_scan(*args, **kw)
+    ref = fold_kernels.tile_scan_reference(*args, **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, v in ref.items():
+        got, want = out[name].cpu().numpy(), v.cpu().numpy()
+        if got.tobytes() != want.tobytes():
+            raise AssertionError(
+                f"K1 {label} {shape}: field {name!r} differs from the plain "
+                f"version at {int(np.flatnonzero(got != want)[0])}")
+        err = max(err, float(np.abs(got.astype(np.float64)
+                                    - want.astype(np.float64)).max()))
+    nbytes, steps = tile_work(spec, wire, args, width)
+    row = {"case": label, "width": width, "bs": lanes_b, "shift": shift,
+           "max_abs_err": err, "bytes": nbytes, "valid_steps": steps}
+    if timed:
+        ops = steps * 12  # decode and step: ~a dozen integer ops a step
+        bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops_ms = ops / INT32_OPS_PER_S * 1e3
+        row.update({
+            # device time from CUDA events (launches queued behind a spin)
+            "ms": device_ms(lambda: fold_kernels.tile_scan(*args, **kw), 7, 10),
+            "ms_source": "events",
+            "call_ms": cuda_ms(lambda: fold_kernels.tile_scan(*args, **kw), 7, 10),
+            # the plain version repeats the kernel's arithmetic in eager
+            # torch: a correctness yardstick, not a speed one
+            "plain_ms": cuda_ms(
+                lambda: fold_kernels.tile_scan_reference(*args, **kw), 3, 1),
+            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+            "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
+                         else "operations")})
+    log("phase1 " + json.dumps(row))
+    return row
+
+
+def phase_kernels() -> dict:
+    """K1's per-tile entry at the plane's dense-window shapes, three
+    layouts."""
+    return {"rows": [check_tile_case(label, spec, wire, shape, timed=True)
+                     for label, spec, wire in kernel_cases()
+                     for shape in PLANE_WINDOW_SHAPES]}
+
+
+def check_plane_window_shapes(shapes, checked: set) -> list[dict]:
+    """K1's per-tile entry against its plain version at every window shape
+    the dense plane gave it (``shapes``: [width, lanes_b, launches]) that
+    phase 1 did not hold (counter, derived ordinal: the plane's layout)."""
+    label, spec, wire = kernel_cases()[0]
     rows = []
-    for label, spec, wire in kernel_cases():
-        for bs in shapes:
-            args = tile_inputs(spec, wire, width, bs, seed=bs + len(label), device="cuda")
-            kw = dict(spec=spec, wire=wire)
-            out = fold_kernels.tile_scan(*args, **kw)
-            ref = fold_kernels.tile_scan_reference(*args, **kw)
-            torch.cuda.synchronize()
-            err = 0.0
-            for name, v in ref.items():
-                got, want = out[name].cpu().numpy(), v.cpu().numpy()
-                if got.tobytes() != want.tobytes():
-                    raise AssertionError(
-                        f"K1 {label} bs={bs}: field {name!r} differs from the "
-                        f"plain version at {int(np.flatnonzero(got != want)[0])}")
-                err = max(err, float(np.abs(got.astype(np.float64)
-                                            - want.astype(np.float64)).max()))
-            call_ms = cuda_ms(lambda: fold_kernels.tile_scan(*args, **kw), 15, 20)
-            kernel_ms = device_kernel_ms(
-                lambda: fold_kernels.tile_scan(*args, **kw), 50, "tile_scan_kernel")
-            plain_ms = cuda_ms(
-                lambda: fold_kernels.tile_scan_reference(*args, **kw), 3, 1)
-            nbytes, steps = tile_work(spec, wire, args, width)
-            ops = steps * 12  # decode and step: ~a dozen integer ops a step
-            bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            bound_ops_ms = ops / INT32_OPS_PER_S * 1e3
-            # ms: the kernel's device time (profiler) where the trace has it,
-            # else the per-call time from CUDA events (wrapper included)
-            row = {"case": label, "width": width, "bs": bs, "max_abs_err": err,
-                   "ms": kernel_ms if kernel_ms is not None else call_ms,
-                   "ms_source": "profiler" if kernel_ms is not None else "events",
-                   "call_ms": call_ms, "plain_ms": plain_ms, "bytes": nbytes,
-                   "valid_steps": steps,
-                   "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-                   "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
-                                else "operations")}
-            rows.append(row)
-            log("phase1 " + json.dumps(row))
-    return {"rows": rows}
+    for width, lanes_b, _ in shapes:
+        if (width, lanes_b) not in checked:
+            rows.append(check_tile_case(label, spec, wire, (width, lanes_b, 0),
+                                        timed=False))
+    return rows
 
 
-#: the list fold's cut cases: (label, layout, corpus, config overrides). The
-#: corpora are cut from the bench's shape; the edges are a corpus whose small
-#: tiles hold 8 lanes (8 wire bytes a row: the kernel's plain-load path), a
-#: batch of 104 lanes (tiles that end inside a lane block) and width 512
+#: the list fold's cut cases: (label, layout, corpus, config overrides,
+#: whether the dense source's big and small lists take the staged (TMA) path).
+#: The corpora are cut from the bench's shape. The edges: small tiles of 8
+#: lanes (8 wire bytes a row: the kernel's plain-load path); a batch of 104
+#: lanes (104 B rows: plain loads, tiles ending inside a lane block); a
+#: batch of 256 (small tiles of 32 lanes, eight staged into each lane
+#: block); a batch of 2,000 (big tiles starting and ending inside lane
+#: blocks, staged; small tiles of 250 lanes, plain loads); width 512
 LIST_CASES = [
-    ("counter/derived", "counter/derived", "cut", {}),
-    ("counter/side", "counter/side", "cut", {}),
-    ("bank_account", "bank_account", "bank", {}),
-    ("counter/derived bs_small 8", "counter/derived", "tiny", {}),
-    ("bank_account bs_small 8", "bank_account", "tiny", {}),
+    ("counter/derived", "counter/derived", "cut", {}, (True, True)),
+    ("counter/side", "counter/side", "cut", {}, (True, True)),
+    ("bank_account", "bank_account", "bank", {}, (True, True)),
+    ("counter/derived bs_small 8", "counter/derived", "tiny", {},
+     (True, False)),
+    ("bank_account bs_small 8", "bank_account", "tiny", {}, (True, False)),
     ("counter/derived batch 104", "counter/derived", "small",
-     {"surge.replay.batch-size": 104}),
+     {"surge.replay.batch-size": 104}, (False, False)),
     ("bank_account batch 104", "bank_account", "small",
-     {"surge.replay.batch-size": 104}),
+     {"surge.replay.batch-size": 104}, (False, False)),
+    ("counter/derived batch 256", "counter/derived", "small",
+     {"surge.replay.batch-size": 256}, (True, True)),
+    ("bank_account batch 256", "bank_account", "small",
+     {"surge.replay.batch-size": 256}, (True, True)),
+    ("counter/derived batch 2000", "counter/derived", "cut",
+     {"surge.replay.batch-size": 2000}, (True, False)),
+    ("bank_account batch 2000", "bank_account", "bank",
+     {"surge.replay.batch-size": 2000}, (True, False)),
     ("counter/derived width 512", "counter/derived", "cut",
-     {"surge.replay.time-chunk": 512}),
+     {"surge.replay.time-chunk": 512}, (True, True)),
 ]
 
 
@@ -324,12 +399,22 @@ def list_work(eng, resident, plan, source: str) -> tuple[int, int]:
             steps)
 
 
+def staged(words, sides, bs: int, nbytes: int) -> bool:
+    """Whether the list kernel stages a dense list through shared memory:
+    its mirror of ``span_of``'s rule (words and side columns on 16 bytes,
+    ``bs * nbytes`` a multiple of 16); off that path it loads per lane."""
+    return (all(t.data_ptr() % 16 == 0 for t in (words, *sides.values()))
+            and bs * nbytes % 16 == 0)
+
+
 def check_list_case(label: str, eng, resident, source: str, seed: int,
-                    timed: bool) -> dict:
+                    timed: bool, bulk: tuple | None = None) -> dict:
     """The list kernel against its plain version over every work list of the
     corpus's plan, from a random slab and ordinals (near int32 max), byte for
-    byte; with ``timed``, its device time per launch and per replay (both
-    lists), the wrapper's time per replay and the plain version's."""
+    byte; the dense source's lists must take the staged path as ``bulk``
+    says. With ``timed``, its device time per replay (both lists) and per
+    launch of each list, the wrapper's time per replay and the plain
+    version's."""
     import torch
 
     from surge_tpu_torch.replay import fold_kernels
@@ -351,15 +436,18 @@ def check_list_case(label: str, eng, resident, source: str, seed: int,
     ordv = rng.integers(0, 1 << 31, size=resident.b_pad, dtype=np.int64)
     ordv[:3] = np.iinfo(np.int32).max
     ord_d = torch.from_numpy(ordv.astype(np.int32)).cuda()
-    calls = []
+    calls, paths = [], []
     for bs, i0s, t_bases in ((plan.bs_big, plan.big_i0, plan.big_tb),
                              (plan.bs_small, plan.small_i0, plan.small_tb)):
         if not len(i0s):
+            paths.append(None)
             continue
         if source == "dense":
             words, sides = eng._dense_tiles(resident, plan, bs, i0s, t_bases)
             starts = None
+            paths.append(staged(words, sides, bs, wire.nbytes))
         else:
+            paths.append(None)
             words, sides = resident.flat_wire, resident.flat_side
             starts = resident.starts_dev
         i0s_d, tb_d, schedule = eng._work_list(resident, plan, bs, i0s, t_bases)
@@ -380,35 +468,43 @@ def check_list_case(label: str, eng, resident, source: str, seed: int,
                 f"list fold {label} ({source}): field {name!r} differs from "
                 f"the plain version at {int(np.flatnonzero(g != w)[0])}")
         err = max(err, float(np.abs(g.astype(np.float64) - w.astype(np.float64)).max()))
+    if source == "dense" and bulk is not None and tuple(paths) != tuple(
+            p if n else None for p, n in zip(bulk, (len(plan.big_i0),
+                                                    len(plan.small_i0)))):
+        raise AssertionError(f"list fold {label}: the lists' staged paths are "
+                             f"{paths}, not {bulk}")
     nbytes, steps = list_work(eng, resident, plan, source)
     row = {"case": label, "source": source, "width": plan.width,
            "bs_big": plan.bs_big, "bs_small": plan.bs_small,
            "tiles": [len(plan.big_i0), len(plan.small_i0)],
-           "launches_per_replay": len(calls), "max_abs_err": err,
-           "bytes": nbytes, "valid_steps": steps}
+           "staged": paths, "launches_per_replay": len(calls),
+           "max_abs_err": err, "bytes": nbytes, "valid_steps": steps}
     if timed:
+        def fold_list(i):
+            args, kw, schedule = calls[i]
+            return lambda: fold_kernels.tile_fold_list(got, *args,
+                                                       schedule=schedule, **kw)
+
         def replay_lists():
-            for args, kw, schedule in calls:
-                fold_kernels.tile_fold_list(got, *args, schedule=schedule, **kw)
+            for i in range(len(calls)):
+                fold_list(i)()
 
         def replay_lists_plain():
             for args, kw, _ in calls:
                 fold_kernels.tile_fold_list_reference(got, *args, **kw)
 
-        per_launch, traced = device_kernel_times(replay_lists, 20, "list_fold")
-        per_replay = None if per_launch is None else per_launch * len(calls)
-        call_ms = cuda_ms(replay_lists, 5, 5)
         plain_ms = cuda_ms(replay_lists_plain, 1, 1)
         bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ops_ms = steps * 12 / INT32_OPS_PER_S * 1e3
         row.update({
-            # device time from the profiler where the trace has it, else
-            # the wrapper's per-replay time from CUDA events
-            "ms": per_replay if per_replay is not None else call_ms,
-            "ms_per_launch": per_launch,
-            "ms_source": "profiler" if per_replay is not None else "events",
-            "launches_traced": traced, "launches_run": 20 * len(calls),
-            "call_ms": call_ms,
+            # device time from CUDA events, launches queued behind a spin:
+            # per replay (both lists) and per launch of each list
+            "ms": device_ms(replay_lists, 7, 10),
+            "ms_per_launch": [device_ms(fold_list(i), 7, 10)
+                              for i in range(len(calls))],
+            "ms_source": "events",
+            # the wrapper's time per replay, host launch cost included
+            "call_ms": cuda_ms(replay_lists, 7, 10),
             # the plain version repeats the kernel's arithmetic in eager
             # torch, tile by tile: a correctness yardstick, not a speed one
             "plain_ms": plain_ms,
@@ -435,15 +531,15 @@ def phase_list_kernel(bench_events) -> dict:
     eng = ReplayEngine(counter.make_replay_spec(), config=cfg)
     resident = eng.upload_resident(eng.pack_resident(bench_events))
     rows.append(check_list_case("counter/derived bench", eng, resident, "dense",
-                                seed=0, timed=True))
+                                seed=0, timed=True, bulk=(True, True)))
     del eng, resident
-    for i, (label, layout, corpus, over) in enumerate(LIST_CASES):
+    for i, (label, layout, corpus, over, bulk) in enumerate(LIST_CASES):
         eng = ReplayEngine(specs[layout].make_replay_spec(),
                            config=Config(overrides=dict(BENCH_CONFIG, **over)))
         resident = eng.upload_resident(eng.pack_resident(list_corpus(layout, corpus)))
         for source in ("dense", "flat"):
             rows.append(check_list_case(label, eng, resident, source,
-                                        seed=i + 1,
+                                        seed=i + 1, bulk=bulk,
                                         timed=corpus in ("cut", "bank")))
         del eng, resident
     torch.cuda.empty_cache()
@@ -593,10 +689,14 @@ def phase_ragged_kernel() -> dict:
 # -- phase 2: the main path -----------------------------------------------------------
 
 
-def profile_replay(eng, resident) -> dict:
+def profile_replay(eng, resident, fold_device_ms: float, wall_ms: float
+                   ) -> dict:
     """One more replay under the profiler (its launches are not counted as the
-    main path's): the device's busy share of the replay's wall time and the
-    device time by kernel. The profiler's own cost inflates the wall time."""
+    main path's): the device time by kernel, and the device's idle share of
+    an unprofiled replay's wall time ``wall_ms``. The CUPTI trace holds fewer
+    list-fold launches than were made (1 of 2 in earlier runs; cause not
+    found), so the list fold's share of the busy time is its time from CUDA
+    events, ``fold_device_ms``, and the trace gives the rest."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -605,17 +705,19 @@ def profile_replay(eng, resident) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.replay_resident(resident)
-        wall_us = (time.perf_counter() - t0) * 1e6
+        profiled_wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict[str, list] = {}
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
             acc = by_name.setdefault(evt.name, [0.0, 0])
             acc[0] += evt.time_range.elapsed_us()
             acc[1] += 1
-    busy_us = sum(v[0] for v in by_name.values())
+    other_ms = sum(v[0] for n, v in by_name.items() if "list_fold" not in n) / 1e3
+    busy_ms = other_ms + fold_device_ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-            "device_idle_share": 1.0 - busy_us / wall_us if wall_us else None,
+    return {"wall_ms": wall_ms, "profiled_wall_ms": profiled_wall_us / 1e3,
+            "device_busy_ms": busy_ms, "other_device_ms": other_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
             "list_fold_traced": sum(v[1] for n, v in by_name.items()
                                     if "list_fold" in n),
             "top_kernels": [{"name": n[:80], "ms": v[0] / 1e3, "count": v[1]}
@@ -676,14 +778,14 @@ def drive_main_path(corpus, layout: str, card: str) -> dict:
         raise AssertionError(f"the cold replay launched K1's per-tile entry "
                              f"{launches['tile_scan']} times")
     # the fold's device time per replay from CUDA events around the work
-    # lists' launches alone (the profiler's trace can miss a launch made
-    # through ctypes); launches made here are not the main path's
+    # lists' launches alone; launches made here are not the main path's
     slab, ord_d = eng._fresh_slab(resident.b_pad)
-    fold_device_ms = cuda_ms(lambda: eng._run_tiles(resident, plan, slab, ord_d),
-                             5, 5)
+    fold_device_ms = device_ms(lambda: eng._run_tiles(resident, plan, slab, ord_d),
+                               7, 5)
     log("phase2-profile " + json.dumps(dict(
-        profile_replay(eng, resident), list_fold_launched=n_lists,
-        fold_device_ms=fold_device_ms, card=card, layout=layout)))
+        profile_replay(eng, resident, fold_device_ms,
+                       statistics.median(folds) * 1e3),
+        list_fold_launched=n_lists, card=card, layout=layout)))
     row = {
         "card": card, "layout": layout,
         "dense": eng._use_dense(resident, plan),
@@ -1055,6 +1157,16 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
     seed_launches = dict(fold_kernels.LAUNCHES)
     for k in fold_kernels.LAUNCHES:
         fold_kernels.LAUNCHES[k] = 0
+    # the (width, lanes) of every window the rounds give K1's per-tile entry,
+    # so each is held against the plain version after the run
+    window_shapes: list = []
+    tile_scan = fold_kernels.tile_scan
+
+    def tile_scan_seen(carry, words, *a, **k):
+        window_shapes.append(tuple(words.shape))
+        return tile_scan(carry, words, *a, **k)
+
+    fold_kernels.tile_scan = tile_scan_seen
     stop = asyncio.Event()
     seen = {"reads": 0, "rows": 0}
     reader = asyncio.ensure_future(torn_row_reader(plane, aggregates, stop, seen))
@@ -1104,6 +1216,7 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
             if seen["reads"] == 0:
                 await asyncio.sleep(0.01)
     finally:
+        fold_kernels.tile_scan = tile_scan
         stop.set()
         await reader
     refresh_launches = dict(fold_kernels.LAUNCHES)
@@ -1126,6 +1239,10 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
     key = "ragged_fold" if dispatch == "bucketed" else "tile_scan"
     if refresh_launches[key] <= 0:
         raise AssertionError(f"the refresh rounds launched {key} no time")
+    if len(window_shapes) != refresh_launches["tile_scan"]:
+        raise AssertionError(f"{len(window_shapes)} windows reached K1's "
+                             f"per-tile entry, which launched "
+                             f"{refresh_launches['tile_scan']} times")
     if seen["reads"] == 0:
         raise AssertionError("the torn-row reader never read")
     return {
@@ -1134,6 +1251,8 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
         "log_build_s": log_s, "start_s": start_s, "seed": plane.seed_timing,
         "seed_launches": seed_launches,
         "refresh_launches": refresh_launches,
+        "window_shapes": [[w, b, window_shapes.count((w, b))]
+                          for w, b in sorted(set(window_shapes))],
         "rounds": per_round, "refresh_events_per_s": ev / (wall_ms / 1e3),
         "read_many_rows_per_s": rows_per_s,
         "torn_reader": seen, "evictions": plane.stats["evictions"],
@@ -1174,11 +1293,8 @@ def main() -> int:
         return 2
 
     from surge_tpu_torch import _build
-    from surge_tpu_torch.config import Config
-    from surge_tpu_torch.models import counter
     from surge_tpu_torch.replay import fold_kernels
     from surge_tpu_torch.replay.corpus import synth_counter_corpus
-    from surge_tpu_torch.replay.engine import ReplayEngine
 
     card = card_line()
     log(f"phase0 card: {card}")
@@ -1188,12 +1304,6 @@ def main() -> int:
         log(_build.library_path(name).with_suffix(".log").read_text().strip())
     fold_kernels.load()
 
-    probe = ReplayEngine(counter.make_replay_spec(),
-                         config=Config(overrides=BENCH_CONFIG))
-    width = probe.resident_tile_width()
-    bs_big = probe.batch_size
-    bs_small = max(8, bs_big // 8)
-
     corpus = None
     if phases & {1, 2}:
         t0 = time.perf_counter()
@@ -1201,7 +1311,7 @@ def main() -> int:
         log(f"phase1 corpus_s: {time.perf_counter() - t0:.3f}")
     k1 = klist = k2 = None
     if 1 in phases:
-        k1 = phase_kernels(width, [bs_big, bs_small])
+        k1 = phase_kernels()
         klist = phase_list_kernel(corpus.events)
         k2 = phase_ragged_kernel()
     main_rows = []
@@ -1214,6 +1324,12 @@ def main() -> int:
     plane = None
     if 4 in phases:
         plane = phase_plane(card)
+        checked = ({(w, b) for w, b, _ in PLANE_WINDOW_SHAPES} if k1 is not None
+                   else set())
+        for row in check_plane_window_shapes(plane["dense"]["window_shapes"],
+                                             checked):
+            if k1 is not None:
+                k1["rows"].append(row)
 
     if k1 is not None:
         # launches on each main path, read right after that path ran with
@@ -1245,9 +1361,11 @@ def main() -> int:
         }
         k2_paths = {"plane_refresh": (main_p["refresh_launches"]["ragged_fold"]
                                       if plane else None)}
-        # the kernel's line: the bench tile (counter, derived ordinal, bs 8192)
+        # the per-tile entry's line: the plane's heavy-round window (counter,
+        # derived ordinal, width 512, 32,768 lanes, the first window)
         head = next(r for r in k1["rows"]
-                    if r["case"] == "counter/derived" and r["bs"] == bs_big)
+                    if r["case"] == "counter/derived"
+                    and (r["width"], r["bs"], r["shift"]) == PLANE_WINDOW_SHAPES[1])
         kernels = [{
             "name": "tile_scan",
             "route": "cuda",
@@ -1258,7 +1376,9 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in k1["rows"]),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": None,
+            "library_ms": None,  # no PyTorch call folds a per-lane sequence
+            "timed_at": [head["width"], head["bs"]],
+            "window_shapes": dense_p["window_shapes"] if plane else None,
         }]
         # the list fold's line: one cold replay's work lists on the bench
         # plan (counter, derived ordinal, dense), both launches together

@@ -10,9 +10,10 @@
 // surge_tile_scan — one tile. One thread per lane, blocks of kThreads lanes,
 // a grid of ceil(bs / kThreads), the ragged edge masked; the carry lives in
 // registers for all width steps and step t reads the time-major
-// words[t * bs + lane], coalesced across a warp. The plane's dense refresh
-// window calls it once per window. At the bench tile (width 64, bs 8192) a
-// launch fills a quarter of the 132 SMs and waits one memory latency a step.
+// words[t * bs + lane], coalesced across a warp. Its one caller is the
+// plane's dense refresh window, once per window: 32,768 lanes (128 blocks,
+// under one an SM) of width 256 or 512, most lanes holding a few events, yet
+// every thread walks all width steps and waits one memory latency a step.
 //
 // surge_tile_fold_list — a whole work list of the resident replay (all big
 // tiles, or all small tiles, of a plan) folded into the state slab in place,

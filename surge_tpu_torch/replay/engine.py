@@ -5,9 +5,9 @@ The counterpart of each reference function keeps its name:
 
 - :func:`make_step_fn` / :func:`make_batch_fold`: the one-event step over a lane
   batch (``switch`` or ``select`` dispatch) and the plain time scan over it.
-- :func:`_make_fold_body`, :func:`_make_tile`, :func:`_make_tile_dense`,
-  :func:`_make_densify`: the tile programs. A tile folds events
-  ``[t_base, t_base + width)`` of lanes ``[i0, i0 + bs)``.
+- :func:`_make_fold_body`, :func:`_make_densify`: the plain backend's
+  tile-interior fold and the dense layout's one-time tile gather. A tile
+  folds events ``[t_base, t_base + width)`` of lanes ``[i0, i0 + bs)``.
 - :class:`ReplayEngine`: ``pack_resident`` → ``upload_resident`` →
   ``warm_resident`` → ``replay_resident``, the cold-replay main path.
 
@@ -15,8 +15,8 @@ Where the reference ran one ``fori_loop`` over a device-resident work list,
 the kernel backend (``tile-backend = pallas``) folds each of the plan's two
 work lists into the state slab in place with one launch of K1's list fold
 (``surge_tpu_torch.replay.fold_kernels.tile_fold_list``); the plain backend
-(``xla``) runs a Python loop over the plan's real tiles through the plain
-torch scan. A caller's ``init_carry`` is copied, never written to.
+(``xla``) walks the same lists tile by tile through the list fold's plain
+version (``fold_kernels.tile_fold_list_reference``) with its own time scan. A caller's ``init_carry`` is copied, never written to.
 """
 
 from __future__ import annotations
@@ -135,10 +135,10 @@ _WIRE_GUARD_MIN = 8192
 
 def _make_fold_body(spec: ReplaySpec, wire: WireFormat, width: int,
                     dispatch: str):
-    """The tile-interior fold shared by the flat-gather and dense-layout
-    resident tiles of the plain backend: ``(carry {f: [bs]}, words [width, bs],
-    sides {n: [width, bs]}, lens [bs], ord_base [bs], t_base) -> carry``, the
-    plain torch time scan."""
+    """The plain backend's tile-interior fold, which it hands to
+    ``fold_kernels.tile_fold_list_reference`` for both layouts: ``(carry
+    {f: [bs]}, words [width, bs], sides {n: [width, bs]}, lens [bs], ord_base
+    [bs], t_base) -> carry``, the plain torch time scan."""
     step = make_step_fn(spec, dispatch)
 
     def fold_body(carry, words, sides, lens, ord_base, t_base: int):
@@ -150,56 +150,6 @@ def _make_fold_body(spec: ReplaySpec, wire: WireFormat, width: int,
         return carry
 
     return fold_body
-
-
-def _make_tile(spec: ReplaySpec, wire: WireFormat, width: int, bs: int,
-               dispatch: str):
-    """The flat-gather tile: ``(state_slab {f: [b_pad]}, flat_wire u8
-    [N, nbytes], side_flat, starts [b_pad], lens [b_pad], ord_base [b_pad], i0,
-    t_base)``; folds lanes ``[i0, i0 + bs)`` over ``[t_base, t_base + width)``
-    and writes their carry back into the slab in place."""
-    fold_body = _make_fold_body(spec, wire, width, dispatch)
-    nbytes = wire.nbytes
-
-    def tile(slab, flat_wire, side_flat, starts_all, lens_all, ord_all,
-             i0: int, t_base: int) -> None:
-        lanes = _lane_range(i0, bs, starts_all.shape[0])
-        idx = _slab_index(starts_all[lanes], t_base, width, flat_wire.shape[0])
-        words = wire.expand_flat(
-            flat_wire[idx.reshape(-1)].reshape(width * bs, nbytes)
-        ).reshape(width, bs)
-        sides = {name: arr[idx] for name, arr in side_flat.items()}
-        carry = {k: v[lanes] for k, v in slab.items()}
-        out = fold_body(carry, words, sides, lens_all[lanes], ord_all[lanes],
-                        t_base)
-        for k, v in slab.items():
-            v[lanes] = out[k]
-
-    return tile
-
-
-def _make_tile_dense(spec: ReplaySpec, wire: WireFormat, width: int, bs: int,
-                     dispatch: str):
-    """The dense-layout tile: reads tile ``k`` from the buffers
-    :func:`_make_densify` pre-gathered (``dense_words u8 [k_n, width, bs,
-    nbytes]``, ``dense_sides {n: [k_n, width, bs]}``) instead of gathering
-    per-lane rows from the flat corpus each pass."""
-    fold_body = _make_fold_body(spec, wire, width, dispatch)
-    nbytes = wire.nbytes
-
-    def tile(slab, dense_words, dense_sides, lens_all, ord_all, i0: int,
-             t_base: int, k: int) -> None:
-        lanes = _lane_range(i0, bs, lens_all.shape[0])
-        words = wire.expand_flat(
-            dense_words[k].reshape(width * bs, nbytes)).reshape(width, bs)
-        sides = {n: arr[k] for n, arr in dense_sides.items()}
-        carry = {f: v[lanes] for f, v in slab.items()}
-        out = fold_body(carry, words, sides, lens_all[lanes], ord_all[lanes],
-                        t_base)
-        for f, v in slab.items():
-            v[lanes] = out[f]
-
-    return tile
 
 
 def _make_densify(wire: WireFormat, width: int, bs: int):
@@ -428,9 +378,7 @@ class ReplayEngine:
                 f"unknown surge.replay.resident-layout "
                 f"{self._resident_layout!r} (auto|flat|dense)")
         self._dense_cap_mb = self.config.get_int("surge.replay.dense-cap-mb", 2048)
-        # plain-backend tile programs per (derived key, width, bs, layout),
-        # and the wire format per derived key
-        self._tiles: dict = {}
+        # the wire format per derived key
         self._wires: dict = {}
         # host-side phase accounting: seconds spent packing, uploading and
         # densifying, and tiles dispatched
@@ -747,8 +695,9 @@ class ReplayEngine:
         """Fold the plan's tiles into ``slab`` in place: all big tiles, then
         all small ones (per-lane order holds because a lane only ever moves
         big→small as the active prefix shrinks). The kernel backend folds
-        each list with one list-fold call; the plain backend loops over its
-        tiles. ``limit`` folds only the first tiles of each list (warm-up)."""
+        each list with one list-fold call; the plain backend walks each list
+        tile by tile through the list fold's plain version with its own time
+        scan. ``limit`` folds only the first tiles of each list (warm-up)."""
         key = frozenset(resident.derived_key.items())
         use_dense = self._use_dense(resident, plan)
         kernel = self.tile_backend == "pallas"
@@ -765,24 +714,21 @@ class ReplayEngine:
             else:
                 words, sides = resident.flat_wire, resident.flat_side
                 starts = resident.starts_dev
+            wire = self._wire(key)
             if kernel:
                 i0s_d, tb_d, schedule = self._work_list(resident, plan, bs, i0s,
                                                         t_bases)
                 fold_kernels.tile_fold_list(
                     slab, words, sides, resident.lens_dev, ord_d, i0s_d, tb_d,
-                    width=plan.width, bs=bs, spec=self.spec,
-                    wire=self._wire(key), starts=starts, k_n=k_n,
-                    schedule=schedule)
-                continue
-            tile = self._tile_program(key, plan.width, bs, dense=use_dense)
-            work = zip(i0s[:k_n].tolist(), t_bases[:k_n].tolist())
-            if use_dense:
-                for k, (i0, tb) in enumerate(work):
-                    tile(slab, words, sides, resident.lens_dev, ord_d, i0, tb, k)
+                    width=plan.width, bs=bs, spec=self.spec, wire=wire,
+                    starts=starts, k_n=k_n, schedule=schedule)
             else:
-                for i0, tb in work:
-                    tile(slab, words, sides, starts, resident.lens_dev, ord_d,
-                         i0, tb)
+                fold_kernels.tile_fold_list_reference(
+                    slab, words, sides, resident.lens_dev, ord_d, i0s, t_bases,
+                    width=plan.width, bs=bs, spec=self.spec, wire=wire,
+                    starts=starts, k_n=k_n,
+                    fold=_make_fold_body(self.spec, wire, plan.width,
+                                         self._dispatch))
 
     def _wire(self, key: frozenset) -> WireFormat:
         """The wire format for one derived-column declaration (one per engine,
@@ -791,17 +737,6 @@ class ReplayEngine:
         if wire is None:
             wire = self._wires[key] = WireFormat(self.spec.registry, dict(key))
         return wire
-
-    def _tile_program(self, key: frozenset, width: int, bs: int, dense: bool):
-        """The plain backend's tile function for one derived-column
-        declaration and geometry (built once per engine)."""
-        ckey = (key, width, bs, dense)
-        tile = self._tiles.get(ckey)
-        if tile is None:
-            make = _make_tile_dense if dense else _make_tile
-            tile = make(self.spec, self._wire(key), width, bs, self._dispatch)
-            self._tiles[ckey] = tile
-        return tile
 
     def _work_list(self, resident: ResidentCorpus, plan: ResidentPlan, bs: int,
                    i0s: np.ndarray, t_bases: np.ndarray):

@@ -197,17 +197,26 @@ def tile_fold_list_reference(slab: Mapping[str, torch.Tensor],
                              i0s: torch.Tensor, t_bases: torch.Tensor, *,
                              width: int, bs: int, spec: ReplaySpec,
                              wire: WireFormat, starts: torch.Tensor | None = None,
-                             k_n: int | None = None) -> None:
+                             k_n: int | None = None, fold=None) -> None:
     """The plain torch version of the list fold: tiles ``[0, k_n)`` of the
-    list one after another through :func:`tile_scan_reference`, each
-    gathering its lanes' carry, folding with ``lens_rel = lens - t_base`` and
-    the ordinal base ``ord + min(t_base, _NOOP_TILE_T - 1)``, and writing the
-    carry back into ``slab`` in place. Dense source: ``words u8 [k, width, bs,
-    nbytes]``, ``sides {n: [k, width, bs]}``; flat source (``starts`` given):
-    ``words u8 [rows, nbytes]``, ``sides {n: [rows]}`` gathered through
-    :func:`_slab_index`."""
+    list one after another, each gathering its lanes' carry, folding it and
+    writing it back into ``slab`` in place. Dense source: ``words u8 [k,
+    width, bs, nbytes]``, ``sides {n: [k, width, bs]}``; flat source
+    (``starts`` given): ``words u8 [rows, nbytes]``, ``sides {n: [rows]}``
+    gathered through :func:`_slab_index`.
+
+    ``fold(carry, words [width, bs], sides, lens, ord, t_base) -> carry`` is
+    the tile-interior fold, over the tile's lanes. By default it is
+    :func:`tile_scan_reference` with ``lens_rel = lens - t_base`` and the
+    ordinal base ``ord + min(t_base, _NOOP_TILE_T - 1)``, what the kernel
+    computes; the engine's plain backend passes its own time scan."""
     nbytes = wire.nbytes
     k_n = len(i0s) if k_n is None else k_n
+    if fold is None:
+        def fold(carry, tile_words, tile_sides, tile_lens, tile_ord, tb):
+            return tile_scan_reference(
+                carry, tile_words, tile_sides, tile_lens - tb,
+                tile_ord + min(tb, int(_NOOP_TILE_T) - 1), spec=spec, wire=wire)
     for k, (i0, tb) in enumerate(zip(i0s[:k_n].tolist(), t_bases[:k_n].tolist())):
         lanes = _lane_range(i0, bs, lens.shape[0])
         if starts is None:
@@ -218,10 +227,8 @@ def tile_fold_list_reference(slab: Mapping[str, torch.Tensor],
             tile_words = words[idx.reshape(-1)].reshape(width * bs, nbytes)
             tile_sides = {n: s[idx] for n, s in sides.items()}
         carry = {f: v[lanes] for f, v in slab.items()}
-        out = tile_scan_reference(
-            carry, wire.expand_flat(tile_words).reshape(width, bs), tile_sides,
-            lens[lanes] - tb, ord[lanes] + min(tb, int(_NOOP_TILE_T) - 1),
-            spec=spec, wire=wire)
+        out = fold(carry, wire.expand_flat(tile_words).reshape(width, bs),
+                   tile_sides, lens[lanes], ord[lanes], tb)
         for f, v in slab.items():
             v[lanes] = out[f]
 

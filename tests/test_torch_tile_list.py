@@ -1,6 +1,6 @@
 """K1's list fold (surge_tpu_torch.replay.fold_kernels.tile_fold_list): the
-per-lane-block schedule, the plain version against the per-tile loop it
-replaced, the port's resident replay through the list path against the
+per-lane-block schedule, the plain version against the plain backend's
+per-tile loop, the port's resident replay through the list path against the
 reference ReplayEngine (tile-backend pallas, interpret mode, and xla), resumed
 folds and warm-up; on a CUDA card only, the kernel against its plain version.
 
@@ -128,35 +128,17 @@ def test_schedule_refuses_a_tile_outside_the_slab():
     assert len(ids) == len(tiles) == 0 and off.tolist() == [0]
 
 
-# -- the plain version against the per-tile loop -----------------------------------------
+# -- the plain version against the plain backend's per-tile loop --------------------------
 
 
-def _per_tile_loop(eng, resident, plan, slab, ord_d, dense, limit=None):
-    """The per-tile loop the list fold replaced: each tile's gather, the
-    kernel wrapper K1 (its plain version on the CPU) and the write-back."""
-    wire = eng._wire(frozenset(resident.derived_key.items()))
-    nbytes, width = wire.nbytes, plan.width
-    for bs, i0s, t_bases in _lists(plan):
-        k_n = len(i0s) if limit is None else min(limit, len(i0s))
-        if dense and len(i0s):
-            dw, ds = eng._dense_tiles(resident, plan, bs, i0s, t_bases)
-        for k, (i0, tb) in enumerate(zip(i0s[:k_n].tolist(), t_bases[:k_n].tolist())):
-            lanes = fold_kernels._lane_range(i0, bs, resident.b_pad)
-            if dense:
-                words = dw[k].reshape(width * bs, nbytes)
-                sides = {n: a[k] for n, a in ds.items()}
-            else:
-                idx = fold_kernels._slab_index(resident.starts_dev[lanes], tb, width,
-                                               resident.flat_wire.shape[0])
-                words = resident.flat_wire[idx.reshape(-1)].reshape(width * bs, nbytes)
-                sides = {n: a[idx] for n, a in resident.flat_side.items()}
-            out = fold_kernels.tile_scan(
-                {f: v[lanes] for f, v in slab.items()},
-                wire.expand_flat(words).reshape(width, bs), sides,
-                resident.lens_dev[lanes] - tb, ord_d[lanes] + min(tb, (1 << 29) - 1),
-                spec=eng.spec, wire=wire)
-            for f, v in slab.items():
-                v[lanes] = out[f]
+def _per_tile_loop(layout, source, resident, slab, ord_d, limit=None):
+    """The plain backend's per-tile loop: the engine (tile-backend xla) walks
+    both lists tile by tile with its own time scan (absolute time, switch
+    dispatch), where the list fold's plain version runs K1's plain version
+    (relative time, the ordinal clamp, select dispatch)."""
+    eng = _engine(layout, **{"surge.replay.tile-backend": "xla",
+                             "surge.replay.resident-layout": source})
+    eng._run_tiles(resident, eng._plan_for(resident), slab, ord_d, limit=limit)
 
 
 def _random_slab(spec, b_pad, seed):
@@ -187,7 +169,7 @@ def test_plain_list_fold_equals_the_per_tile_loop(layout, source):
     for limit in (None, 1):
         slab, ord_d = _random_slab(eng.spec, resident.b_pad, seed=3)
         want = {f: v.clone() for f, v in slab.items()}
-        _per_tile_loop(eng, resident, plan, want, ord_d, source == "dense", limit)
+        _per_tile_loop(layout, source, resident, want, ord_d, limit)
         for bs, i0s, t_bases in _lists(plan):
             if source == "dense":
                 words, sides = eng._dense_tiles(resident, plan, bs, i0s, t_bases)
