@@ -7,33 +7,41 @@ first. Phases:
 
 0. the card's name and power limit, and the kernel build time;
 1. each kernel against its plain torch version on the card, byte for byte, at
-   the main paths' shapes, with its time, bound and the plain time: K1's
-   per-tile entry at the dense plane's refresh windows (widths 256 and 512,
-   32,768 lanes, chained); K1's list fold over the bench plan's work lists
-   (dense) and, on cut corpora, both sources, three model layouts and the
-   edges (bs_small 8; batches of 104, 256 and 2,000 lanes, whose tiles start
-   and end inside a lane block, staged or loaded per lane; width 512); K2 at
-   the refresh buckets (bs, width, rows) = (8, 2, 16), (4096, 8, 32768),
-   (65536, 4, 262144) and a chained (8, 512, 4096) window with the starts
-   shifted by 512 and 1024, for three model layouts;
+   the main paths' shapes, with its time, bound and the plain time. The two
+   refresh-window kernels (K1's dense window, K2's ragged window), each one
+   launch against a 2^20-row slab by slot, at the plane's windows
+   (``WINDOW_CASES``: the dense plane's 32,768-lane windows of width 256 and
+   512, first and chained, and an 8-lane window off TMA's rules; the
+   bucketed plane's buckets of widths 2, 4, 8 (the steady 4,096-lane
+   bucket), 256 and the heavy lane's chained 512, a chained window of long
+   lanes over a block's shared memory (the global-read path), clipped
+   reads; windows with and without admission, padding lanes), for three
+   model layouts, with the path each block took as the kernel reports it;
+   K1's list fold over the bench plan's work lists (dense)
+   and, on cut corpora, both sources, three model layouts and the edges
+   (bs_small 8; batches of 104, 256 and 2,000 lanes, whose tiles start and
+   end inside a lane block, staged or loaded per lane; width 512);
 2. the main path at full size: ``synth_counter_corpus(1M aggregates, 100M
    events)`` through ``ReplayEngine`` under the bench config (batch 8192,
    time-chunk 64, tile-backend auto), ``pack_resident`` → ``upload_resident``
    → ``warm_resident`` → ``replay_resident`` five times, with the layout
    ``auto`` picks and with ``flat``; the states must equal the closed-form
    expected states exactly, each replay must launch the list fold once per
-   non-empty work list, and the per-tile entry never;
+   non-empty work list, and no window kernel;
 3. a resumed fold (first half of each log, then the rest from ``init_carry`` and
    ``ordinal_base``) and a bank_account corpus against the plain scan;
 4. the resident state plane (``ResidentStatePlane``) at deployment size: the
    port's ``InMemoryLog`` with 8 partitions, the reference's default config
    with 2^20 resident rows, a cold-start seed of 1,310,720 aggregates through
-   K1's list fold, 16 refresh rounds of about 32k events through K2 (evicting and
-   re-admitting, with chained windows every fourth round) while a reader
-   checks that no row is torn, then every aggregate read back against its
-   closed form; and a smaller plane on the dense dispatch through K1's
-   per-tile entry, which is then held against its plain version at every
-   window shape the plane gave it that phase 1 did not check;
+   K1's list fold, 16 refresh rounds of about 32k events through K2's window
+   (evicting and re-admitting, with chained windows every fourth round)
+   while a reader checks that no row is torn, then every aggregate read back
+   against its closed form; and a smaller plane on the dense dispatch
+   through K1's dense window. Each refresh window must be ONE window-kernel
+   launch; the profiled round gives the device busy time, idle share and
+   the device operations per window. Each window kernel is then held
+   against its plain version at every window shape the planes gave it that
+   phase 1 did not check;
 then one JSON line of every kernel's numbers, the card line, and a last line
 ``{"ok": true, "device": {...}}``.
 
@@ -49,6 +57,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -122,30 +131,6 @@ def device_ms(fn, repeats: int, inner: int) -> float:
     return statistics.median(times)
 
 
-def device_kernel_ms(fn, calls: int, name: str) -> float | None:
-    """Mean device time of the CUDA kernels whose name contains ``name`` over
-    ``calls`` calls of ``fn``, from the profiler's CUPTI trace; None when the
-    trace holds no such kernel time (it holds fewer launches than were made,
-    for a cause not found)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for evt in prof.key_averages():
-        if name in evt.key:
-            total_us += evt.device_time_total
-            count += evt.count
-    if count == 0 or total_us <= 0:
-        return None
-    return total_us / count / 1e3
-
-
 # -- phase 1: kernel against its plain version ---------------------------------------
 
 
@@ -164,141 +149,292 @@ def kernel_cases():
     ]
 
 
-#: K1's per-tile entry runs on one path: the plane's dense refresh windows
-#: (drive_plane, dispatch "dense"). A round there folds ~8,000 lanes, padded
+#: the refresh windows phase 1 checks, at the plane's shapes: (label, kind,
+#: lanes, live lanes, width, window offset t_base, admits, lane lengths).
+#: Dense (drive_plane, dispatch "dense"): a round folds ~8,000 lanes padded
 #: to _pow8 = 32,768; its longest log (a tail of 17-256 events) sets the
 #: width to 256, and a heavy round's 1,800-event lane sets it to 512 over
-#: four chained windows. Checked shapes: (width, lanes_b, window offset)
-PLANE_WINDOW_LIVE = 8000
-PLANE_WINDOW_SHAPES = [(256, 32768, 0), (512, 32768, 0), (512, 32768, 1024)]
+#: four chained windows; a window of 8 lanes breaks TMA's 16-byte rules and
+#: takes the plain-load path. Ragged (dispatch "bucketed"): pow2 length
+#: buckets of a round's ~9,000 lanes (widths 2 and 4 hold most of them, the
+#: steady bucket is 4,096 lanes of width 8, the tail buckets a few dozen
+#: lanes), the heavy lane's chained 512-wide windows, a chained window of
+#: 256 long lanes whose span exceeds a block's shared memory (the global-read
+#: path), and lanes whose reads clip at the buffer's last row
+WINDOW_CASES = [
+    ("dense w256", "dense", 32768, 8000, 256, 0, True, "round"),
+    ("dense w512", "dense", 32768, 8000, 512, 0, True, "heavy"),
+    ("dense w512 chained", "dense", 32768, 8000, 512, 1024, False, "heavy"),
+    ("dense 8 lanes", "dense", 8, 5, 8, 0, True, "short"),
+    ("ragged w2", "ragged", 8192, 4500, 2, 0, True, (1, 2)),
+    ("ragged w4", "ragged", 8192, 4500, 4, 0, True, (3, 4)),
+    ("ragged w8 steady", "ragged", 4096, 3500, 8, 0, False, (5, 8)),
+    ("ragged w256", "ragged", 64, 40, 256, 0, True, (129, 256)),
+    ("ragged w512 chained", "ragged", 8, 1, 512, 512, False, (1800, 1800)),
+    ("ragged over budget", "ragged", 256, 256, 512, 512, False, (2000, 2000)),
+    ("ragged clipped", "ragged", 8, 6, 2, 0, True, "clip"),
+]
+#: the rows the kernels line times (counter, derived ordinal): the dense
+#: plane's heavy window and the bucketed plane's steady bucket
+WINDOW_HEAD = {"dense": "dense w512", "ragged": "ragged w8 steady"}
 
 
-def window_inputs(spec, wire, width: int, lanes_b: int, live: int, shift: int,
-                  seed: int, device):
-    """Random K1 inputs laid out as the plane's dense window packs a round
-    (``_pack_windows``): ``live`` lanes of 1-4 events with a 1.25% tail of
-    17-256 and, at width 512, lane 0 with 1,800; lens_rel is the window's
-    counts ``clip(lengths - shift, 0, width)`` and the padding lanes past
-    ``live`` hold 0. On top: full 32-bit words in every slot (corrupt type
-    ids, the 32nd bit set, and garbage in the padded slots that lens_rel
-    masks), random side values and carries, ordinals near int32 max."""
-    import torch
-
-    rng = np.random.default_rng(seed)
-    lengths = np.zeros(lanes_b, dtype=np.int64)
-    lengths[:live] = rng.integers(1, 5, size=live)
-    tail = np.flatnonzero(rng.random(live) < 0.0125)
-    lengths[tail] = rng.integers(17, 257, size=len(tail))
-    if width >= 512:
-        lengths[0] = 1800
-    lens = np.clip(lengths - shift, 0, width).astype(np.int32)
-    words = rng.integers(0, 1 << 32, size=(width, lanes_b), dtype=np.uint64)
-    words = words.astype(np.uint32).view(np.int32)
-    sides = {}
-    for f in wire.side_fields:
-        if np.dtype(f.dtype) == np.float32:
-            col = rng.standard_normal((width, lanes_b)).astype(np.float32)
-        else:
-            col = rng.integers(-(1 << 31), 1 << 31, size=(width, lanes_b),
-                               dtype=np.int64).astype(np.int32)
-        sides[f.name] = col
-    ordr = rng.integers(0, 1 << 31, size=lanes_b, dtype=np.int64).astype(np.int32)
-    ordr[:2] = (np.iinfo(np.int32).max, np.iinfo(np.int32).max - width // 2)
-    carry = {}
-    for f in spec.registry.state.fields:
-        dt = np.dtype(f.dtype)
-        if dt == np.bool_:
-            carry[f.name] = rng.integers(0, 2, size=lanes_b).astype(bool)
-        elif dt == np.float32:
-            carry[f.name] = rng.standard_normal(lanes_b).astype(np.float32)
-        else:
-            carry[f.name] = rng.integers(-(1 << 31), 1 << 31, size=lanes_b,
-                                         dtype=np.int64).astype(np.int32)
-    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
-    return ({k: to(v) for k, v in carry.items()}, to(words),
-            {k: to(v) for k, v in sides.items()}, to(lens), to(ordr))
+def lane_lengths(rng, live: int, width: int, spec) -> np.ndarray:
+    """Each live lane's events: a dense round's (1-4, a 1.25% tail of
+    17-256, and at "heavy" lane 0 with 1,800), a few ("short"), uniform in a
+    bucket's (lo, hi), or the given array."""
+    if isinstance(spec, np.ndarray):
+        return spec
+    if spec in ("round", "heavy"):
+        n = rng.integers(1, 5, size=live)
+        tail = rng.random(live) < 0.0125
+        n[tail] = rng.integers(17, 257, size=int(tail.sum()))
+        if spec == "heavy":
+            n[0] = 1800
+        return n
+    if spec in ("short", "clip"):
+        return rng.integers(1, width + 1, size=live)
+    return rng.integers(spec[0], spec[1] + 1, size=live)
 
 
-def tile_work(spec, wire, args, width: int) -> tuple[int, int]:
-    """(bytes, valid steps) one K1 launch needs on these inputs: the word
-    and side columns of each slot some lane folds (``t < lens_rel``) read
-    once, each lane's length and ordinal read once, the carry read and
-    written once."""
-    lens = args[3].cpu().numpy()
-    bs = len(lens)
-    steps = int(np.minimum(np.clip(lens, 0, None), width).sum())
-    state = sum(np.dtype(f.dtype).itemsize for f in spec.registry.state.fields)
-    side = sum(np.dtype(f.dtype).itemsize for f in wire.side_fields)
-    return steps * (4 + side) + bs * (4 + 4 + 2 * state), steps
-
-
-def check_tile_case(label: str, spec, wire, shape: tuple[int, int, int],
-                    timed: bool) -> dict:
-    """K1's per-tile entry against its plain version at one dense-window
-    shape, byte for byte; with ``timed``, its device time, bound and the
-    plain version's time."""
+def window_case(kind: str, spec, wire, lanes: int, live: int, width: int,
+                t_base: int, admit: bool, lengths, seed: int,
+                capacity: int, rows: int | None = None) -> dict:
+    """One refresh window's inputs on the card, laid out as the plane lays
+    them out: ``live`` lanes at distinct random slots of a ``capacity``-row
+    slab (the rest pad to the scratch row), counts ``clip(lengths - t_base,
+    0, width)``, the ragged bucket's events lane-contiguous from the
+    exclusive cumsum of the lengths in ``_pow2(events)`` rows (or ``rows``),
+    random wire bytes in every slot and row (corrupt type ids, garbage past
+    the counts), random side values, slab and ordinals (near int32 max too),
+    and on an admitting window a random fifth of the lanes admitted."""
     import torch
 
     from surge_tpu_torch.replay import fold_kernels
 
-    width, lanes_b, shift = shape
-    args = window_inputs(spec, wire, width, lanes_b,
-                         min(PLANE_WINDOW_LIVE, lanes_b), shift,
-                         seed=width + shift + lanes_b + len(label), device="cuda")
-    kw = dict(spec=spec, wire=wire)
-    out = fold_kernels.tile_scan(*args, **kw)
-    ref = fold_kernels.tile_scan_reference(*args, **kw)
+    rng = np.random.default_rng(seed)
+    fields = spec.registry.state.fields
+
+    def col(dt, n):
+        dt = np.dtype(dt)
+        if dt == np.bool_:
+            return rng.integers(0, 2, size=n).astype(bool)
+        if dt == np.float32:
+            return rng.standard_normal(n).astype(np.float32)
+        return rng.integers(-(1 << 31), 1 << 31, size=n,
+                            dtype=np.int64).astype(dt)
+
+    n = lane_lengths(rng, live, width, lengths).astype(np.int64)
+    slots = np.full(lanes, capacity, dtype=np.int32)
+    slots[:live] = rng.choice(capacity, live, replace=False)
+    counts = np.zeros(lanes, dtype=np.int32)
+    counts[:live] = np.clip(n - t_base, 0, width)
+    starts = None
+    if kind == "ragged":
+        total = int(n.sum())
+        if rows is None:
+            rows = 8
+            while rows < total:
+                rows *= 2
+        starts = np.zeros(lanes, dtype=np.int64)
+        starts[1:live] = np.cumsum(n)[:live - 1]
+        starts[:live] += t_base
+        if isinstance(lengths, str) and lengths == "clip":  # all, half clip
+            starts[2], starts[3] = rows - 1, max(rows - 1 - width // 2, 0)
+            counts[2:4] = width
+        starts = starts.astype(np.int32)
+        words = rng.integers(0, 256, size=(rows, wire.nbytes), dtype=np.uint8)
+        sides = {f.name: col(f.dtype, rows) for f in wire.side_fields}
+    else:
+        words = rng.integers(0, 256, size=(width, lanes, wire.nbytes),
+                             dtype=np.uint8)
+        sides = {f.name: col(f.dtype, width * lanes).reshape(width, lanes)
+                 for f in wire.side_fields}
+    admission = None
+    if admit:
+        flag = np.zeros(lanes, dtype=bool)
+        flag[:live] = rng.random(live) < 0.2
+        admission = (flag, col(np.int32, lanes),
+                     {f.name: col(f.dtype, lanes) for f in fields})
+    table = fold_kernels.window_table(slots, counts, starts, admission,
+                                      tuple(f.name for f in fields))
+    slab = {f.name: col(f.dtype, capacity + 1) for f in fields}
+    ords = col(np.int32, capacity + 1)
+    ords[slots[:2]] = np.iinfo(np.int32).max
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    return {"kind": kind, "slab": {k: to(v) for k, v in slab.items()},
+            "ords": to(ords), "table": to(table), "table_np": table,
+            "words": to(words), "sides": {k: to(v) for k, v in sides.items()},
+            "width": width, "rows": rows, "lanes": lanes, "live": live,
+            "capacity": capacity}
+
+
+def window_call(c: dict, spec, wire, plain: bool = False, paths=None):
+    """A call of the case's window (kernel or plain version) on the case's
+    own slab and ordinals, in place; ``paths`` takes the kernel's per-lane
+    path report."""
+    from surge_tpu_torch.replay import fold_kernels
+
+    fn = getattr(fold_kernels, f"{c['kind']}_window"
+                 + ("_reference" if plain else ""))
+    kw = {"width": c["width"]} if c["kind"] == "ragged" else {}
+    if paths is not None:
+        kw["paths"] = paths
+    return lambda: fn(c["slab"], c["ords"], c["table"], c["words"], c["sides"],
+                      spec=spec, wire=wire, **kw)
+
+
+def window_work(c: dict, spec, wire) -> tuple[int, int]:
+    """(bytes, valid steps) one window needs on these inputs, each read or
+    written once: the wire bytes and side values of each slot a live lane
+    folds; every lane's slot (it marks the padding lanes); each live lane's
+    count, its start (ragged) and, on an admitting window, its admit flag;
+    an admitted lane's ordinal and values; each live lane's carry and
+    ordinal read by slot (unless admitted) and written by slot."""
+    from surge_tpu_torch.replay import fold_kernels
+
+    t = c["table_np"]
+    live = t[fold_kernels.LANE_SLOT] != c["capacity"]
+    n_live = int(live.sum())
+    steps = int(np.clip(t[fold_kernels.LANE_COUNT][live], 0, c["width"]).sum())
+    admits = t.shape[0] > fold_kernels.LANE_ADMIT
+    admitted = int((t[fold_kernels.LANE_ADMIT][live] != 0).sum()) if admits else 0
+    fields = spec.registry.state.fields
+    row = sum(np.dtype(f.dtype).itemsize for f in fields) + 4
+    side = sum(np.dtype(f.dtype).itemsize for f in wire.side_fields)
+    table = 4 * (t.shape[1] + n_live * (1 + (c["kind"] == "ragged") + admits)
+                 + admitted * (1 + len(fields)))
+    nbytes = (steps * (wire.nbytes + side) + table
+              + (n_live - admitted) * row + n_live * row)
+    return nbytes, steps
+
+
+def lanes_by_path(paths) -> dict:
+    """The kernel's per-lane path report, counted by path."""
+    from surge_tpu_torch.replay import fold_kernels
+
+    p = paths.cpu().numpy()
+    return {name: int((p == v).sum()) for name, v in (
+        ("staged", fold_kernels.PATH_STAGED), ("global", fold_kernels.PATH_GLOBAL),
+        ("none", fold_kernels.PATH_NONE))}
+
+
+def check_window_case(label: str, spec, wire, c: dict, timed: bool) -> dict:
+    """A window kernel against its plain version on one case, byte for byte
+    over every slab row and ordinal but the scratch row, with the lanes of
+    each path the kernel reports; with ``timed``, its device time (CUDA
+    events behind a spin kernel), bound and the plain version's time."""
+    import torch
+
+    kind = c["kind"]
+    slab0 = {k: v.clone() for k, v in c["slab"].items()}
+    ords0 = c["ords"].clone()
+    paths = torch.full((c["lanes"],), 9, dtype=torch.int8, device="cuda")
+    window_call(c, spec, wire, paths=paths)()
+    got = ({k: v.clone() for k, v in c["slab"].items()}, c["ords"].clone())
+    for k, v in slab0.items():
+        c["slab"][k].copy_(v)
+    c["ords"].copy_(ords0)
+    window_call(c, spec, wire, plain=True)()
     torch.cuda.synchronize()
+    cap = c["capacity"]
     err = 0.0
-    for name, v in ref.items():
-        got, want = out[name].cpu().numpy(), v.cpu().numpy()
-        if got.tobytes() != want.tobytes():
+    for name, v in c["slab"].items():
+        g, w = got[0][name][:cap].cpu().numpy(), v[:cap].cpu().numpy()
+        if g.tobytes() != w.tobytes():
             raise AssertionError(
-                f"K1 {label} {shape}: field {name!r} differs from the plain "
-                f"version at {int(np.flatnonzero(got != want)[0])}")
-        err = max(err, float(np.abs(got.astype(np.float64)
-                                    - want.astype(np.float64)).max()))
-    nbytes, steps = tile_work(spec, wire, args, width)
-    row = {"case": label, "width": width, "bs": lanes_b, "shift": shift,
-           "max_abs_err": err, "bytes": nbytes, "valid_steps": steps}
+                f"{kind} window {label}: slab {name!r} differs from the plain "
+                f"version at row {int(np.flatnonzero(g != w)[0])}")
+        err = max(err, float(np.abs(g.astype(np.float64) - w.astype(np.float64)).max()))
+    g, w = got[1][:cap].cpu().numpy(), c["ords"][:cap].cpu().numpy()
+    if g.tobytes() != w.tobytes():
+        raise AssertionError(f"{kind} window {label}: ordinals differ from the "
+                             f"plain version at row {int(np.flatnonzero(g != w)[0])}")
+    nbytes, steps = window_work(c, spec, wire)
+    row = {"case": label, "kind": kind, "lanes": c["lanes"], "live": c["live"],
+           "width": c["width"], "rows": c["rows"], "max_abs_err": err,
+           "bytes": nbytes, "valid_steps": steps,
+           "lanes_by_path": lanes_by_path(paths)}
+    if sum(row["lanes_by_path"].values()) != c["lanes"]:
+        raise AssertionError(f"{kind} window {label}: the kernel reported no "
+                             f"path for some lanes: {row['lanes_by_path']}")
     if timed:
-        ops = steps * 12  # decode and step: ~a dozen integer ops a step
         bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ops_ms = ops / INT32_OPS_PER_S * 1e3
+        bound_ops_ms = steps * 12 / INT32_OPS_PER_S * 1e3
         row.update({
-            # device time from CUDA events (launches queued behind a spin)
-            "ms": device_ms(lambda: fold_kernels.tile_scan(*args, **kw), 7, 10),
+            "ms": device_ms(window_call(c, spec, wire), 7, 10),
             "ms_source": "events",
-            "call_ms": cuda_ms(lambda: fold_kernels.tile_scan(*args, **kw), 7, 10),
+            "call_ms": cuda_ms(window_call(c, spec, wire), 7, 10),
             # the plain version repeats the kernel's arithmetic in eager
             # torch: a correctness yardstick, not a speed one
-            "plain_ms": cuda_ms(
-                lambda: fold_kernels.tile_scan_reference(*args, **kw), 3, 1),
+            "plain_ms": cuda_ms(window_call(c, spec, wire, plain=True), 3, 1),
             "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-            "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
-                         else "operations")})
-    log("phase1 " + json.dumps(row))
+            "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"})
+    log("phase1-window " + json.dumps(row))
     return row
 
 
-def phase_kernels() -> dict:
-    """K1's per-tile entry at the plane's dense-window shapes, three
-    layouts."""
-    return {"rows": [check_tile_case(label, spec, wire, shape, timed=True)
-                     for label, spec, wire in kernel_cases()
-                     for shape in PLANE_WINDOW_SHAPES]}
+def phase_windows() -> dict:
+    """Both window kernels against their plain versions at the plane's
+    window shapes, three layouts; timed on the plane's layout (counter,
+    derived ordinal)."""
+    import torch
 
-
-def check_plane_window_shapes(shapes, checked: set) -> list[dict]:
-    """K1's per-tile entry against its plain version at every window shape
-    the dense plane gave it (``shapes``: [width, lanes_b, launches]) that
-    phase 1 did not hold (counter, derived ordinal: the plane's layout)."""
-    label, spec, wire = kernel_cases()[0]
     rows = []
-    for width, lanes_b, _ in shapes:
-        if (width, lanes_b) not in checked:
-            rows.append(check_tile_case(label, spec, wire, (width, lanes_b, 0),
-                                        timed=False))
+    for li, (layout, spec, wire) in enumerate(kernel_cases()):
+        for i, (label, kind, lanes, live, width, t_base, admit, lengths) in \
+                enumerate(WINDOW_CASES):
+            c = window_case(kind, spec, wire, lanes, live, width, t_base, admit,
+                            lengths, seed=100 * li + i, capacity=PLANE_CAPACITY)
+            rows.append(check_window_case(f"{layout} {label}", spec, wire, c,
+                                          timed=li == 0))
+            del c
+    torch.cuda.empty_cache()
+    # the paths the kernels reported: a chained window of long lanes spans
+    # more than a ragged block's shared memory; a steady bucket, packed back
+    # to back, stages; the 8-lane dense window breaks TMA's 16-byte rules
+    # and the 32,768-lane one keeps them
+    by = {r["case"]: r["lanes_by_path"] for r in rows}
+    for layout, _, _ in kernel_cases():
+        checks = {"ragged over budget": by[f"{layout} ragged over budget"]["global"] > 0,
+                  "ragged w8 steady": by[f"{layout} ragged w8 steady"]["global"] == 0
+                  and by[f"{layout} ragged w8 steady"]["staged"] > 0,
+                  "dense 8 lanes": by[f"{layout} dense 8 lanes"]["staged"] == 0,
+                  "dense w512": by[f"{layout} dense w512"]["global"] == 0
+                  and by[f"{layout} dense w512"]["staged"] > 0}
+        for label, ok in checks.items():
+            if not ok:
+                raise AssertionError(f"{layout} {label}: the kernel took an "
+                                     f"unexpected path: {by[f'{layout} {label}']}")
+    return {"rows": rows}
+
+
+def check_plane_window_shapes(shapes: dict, checked: set) -> list[dict]:
+    """Each window kernel against its plain version at every window shape
+    the plane gave it in phase 4 (``shapes``: {kind: [[lanes, width, rows,
+    launches], ...]}) that phase 1 did not hold (counter, derived ordinal:
+    the plane's layout), timed."""
+    layout, spec, wire = kernel_cases()[0]
+    rows = []
+    for kind, seen in shapes.items():
+        for lanes, width, nrows, _ in seen:
+            if (kind, lanes, width, nrows) in checked:
+                continue
+            if kind == "ragged":  # events that pack into exactly nrows rows
+                total = nrows * 3 // 4 if nrows > 8 else 6
+                live = min(lanes, total)
+                lengths = total // live + (np.arange(live) < total % live)
+            else:
+                live = max(1, lanes * 8000 // 32768)
+                lengths = "round"
+            c = window_case(kind, spec, wire, lanes, live, width, 0, True,
+                            lengths, seed=lanes + width, capacity=PLANE_CAPACITY,
+                            rows=nrows)
+            rows.append(check_window_case(
+                f"{layout} plane {kind} {lanes}x{width}"
+                + (f" rows {nrows}" if kind == "ragged" else ""), spec, wire, c,
+                timed=True))
+            del c
     return rows
 
 
@@ -546,146 +682,6 @@ def phase_list_kernel(bench_events) -> dict:
     return {"rows": rows}
 
 
-#: K2's refresh-bucket shapes (bs, width, rows, start shifts): a small bucket,
-#: a steady bucket, a large bucket, and a lane folding through chained
-#: 512-wide windows (its starts shifted by 512, then 1024)
-K2_SHAPES = [(8, 2, 16, (0,)), (4096, 8, 32768, (0,)),
-             (65536, 4, 262144, (0,)), (8, 512, 4096, (512, 1024))]
-
-
-def ragged_inputs(spec, wire, bs: int, width: int, rows: int, shift: int,
-                  seed: int, device):
-    """Random K2 inputs laid out as the plane packs a refresh bucket: each
-    lane's events lie lane-contiguous from the exclusive cumsum of the lane
-    lengths, the buffer is ``_pow2(events)`` rows, and padding lanes start at
-    row 0 with no events. A bucket of width w holds lanes of w//2+1 to w
-    events; lane 0 holds more than the width (three windows at width 512).
-    A chained window shifts the starts by ``shift`` and folds
-    ``lengths - shift`` events (lens of 0 and of at least the width). On
-    top: full 32-bit words (corrupt type ids, random pad rows), two lanes
-    moved into the pad tail whose reads clip at rows - 1, and large
-    ordinals. Returns the kernel's arguments."""
-    import torch
-
-    rng = np.random.default_rng(seed)
-    n_pad = max(1, bs // 16)
-    lengths = np.zeros(bs, dtype=np.int64)
-    lengths[:bs - n_pad] = rng.integers(width // 2 + 1, width + 1,
-                                        size=bs - n_pad)
-    lengths[0] = 2 * width + 77 if width >= 64 else width + 1
-    total = int(lengths.sum())
-    if 1 << max(total - 1, 0).bit_length() != rows:
-        raise AssertionError(f"K2 inputs: {total} events do not pack into "
-                             f"{rows} rows")
-    words = rng.integers(0, 1 << 32, size=rows, dtype=np.uint64)
-    words = words.astype(np.uint32).view(np.int32)
-    sides = {}
-    for f in wire.side_fields:
-        if np.dtype(f.dtype) == np.float32:
-            col = rng.standard_normal(rows).astype(np.float32)
-        else:
-            col = rng.integers(-(1 << 31), 1 << 31, size=rows,
-                               dtype=np.int64).astype(np.int32)
-        sides[f.name] = col
-    starts = np.zeros(bs, dtype=np.int64)
-    starts[1:bs - n_pad] = np.cumsum(lengths)[:bs - n_pad - 1]
-    starts[:bs - n_pad] += shift
-    lens = np.clip(lengths - shift, 0, None)
-    starts[2] = rows - 1                          # every step clips
-    starts[3] = max(rows - 1 - width // 2, 0)     # clips half way
-    lens[2:4] = width
-    starts, lens = starts.astype(np.int32), lens.astype(np.int32)
-    ordv = rng.integers(0, 1 << 31, size=bs, dtype=np.int64).astype(np.int32)
-    ordv[:2] = (np.iinfo(np.int32).max, np.iinfo(np.int32).max - width // 2)
-    carry = {}
-    for f in spec.registry.state.fields:
-        dt = np.dtype(f.dtype)
-        if dt == np.bool_:
-            carry[f.name] = rng.integers(0, 2, size=bs).astype(bool)
-        elif dt == np.float32:
-            carry[f.name] = rng.standard_normal(bs).astype(np.float32)
-        else:
-            carry[f.name] = rng.integers(-(1 << 31), 1 << 31, size=bs,
-                                         dtype=np.int64).astype(np.int32)
-    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
-    return ({k: to(v) for k, v in carry.items()}, to(words),
-            {k: to(v) for k, v in sides.items()}, to(starts), to(lens),
-            to(ordv))
-
-
-def ragged_work(spec, wire, args, width: int) -> tuple[int, int]:
-    """(bytes, valid steps) one K2 launch needs on these inputs: each flat
-    row some lane folds (``min(starts + t, rows - 1)`` for ``t < lens``) read
-    once as a word and its side columns, each lane's start, length and
-    ordinal read once, the carry read and written once."""
-    _, words, _, starts, lens, _ = args
-    rows = words.shape[0]
-    starts = starts.cpu().numpy().astype(np.int64)
-    steps = np.minimum(np.clip(lens.cpu().numpy(), 0, None), width)
-    t = np.arange(width, dtype=np.int64)
-    read = np.minimum(np.clip(starts, 0, None)[:, None] + t[None, :], rows - 1)
-    needed = np.unique(read[t[None, :] < steps[:, None]]).size
-    bs = len(starts)
-    state = sum(np.dtype(f.dtype).itemsize for f in spec.registry.state.fields)
-    side = sum(np.dtype(f.dtype).itemsize for f in wire.side_fields)
-    return needed * (4 + side) + bs * (12 + 2 * state), int(steps.sum())
-
-
-def phase_ragged_kernel() -> dict:
-    import torch
-
-    from surge_tpu_torch.replay import fold_kernels
-
-    rows_out = []
-    for label, spec, wire in kernel_cases():
-        for bs, width, rows, shifts in K2_SHAPES:
-            for shift in shifts:
-                args = ragged_inputs(spec, wire, bs, width, rows, shift,
-                                     seed=bs + width + shift + len(label),
-                                     device="cuda")
-                kw = dict(width=width, spec=spec, wire=wire)
-                out = fold_kernels.ragged_fold(*args, **kw)
-                ref = fold_kernels.ragged_fold_reference(*args, **kw)
-                torch.cuda.synchronize()
-                err = 0.0
-                for name, v in ref.items():
-                    got, want = out[name].cpu().numpy(), v.cpu().numpy()
-                    if got.tobytes() != want.tobytes():
-                        raise AssertionError(
-                            f"K2 {label} {(bs, width, rows, shift)}: field "
-                            f"{name!r} differs from the plain version at "
-                            f"{int(np.flatnonzero(got != want)[0])}")
-                    err = max(err, float(np.abs(got.astype(np.float64)
-                                                - want.astype(np.float64)).max()))
-                call_ms = cuda_ms(lambda: fold_kernels.ragged_fold(*args, **kw),
-                                  15, 20)
-                kernel_ms = device_kernel_ms(
-                    lambda: fold_kernels.ragged_fold(*args, **kw), 50,
-                    "ragged_fold_kernel")
-                plain_ms = cuda_ms(
-                    lambda: fold_kernels.ragged_fold_reference(*args, **kw), 3, 1)
-                nbytes, steps = ragged_work(spec, wire, args, width)
-                ops = steps * 14  # clip, decode and step per valid step
-                bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-                bound_ops_ms = ops / INT32_OPS_PER_S * 1e3
-                row = {"case": label, "bs": bs, "width": width, "rows": rows,
-                       "shift": shift, "max_abs_err": err,
-                       "ms": kernel_ms if kernel_ms is not None else call_ms,
-                       "ms_source": ("profiler" if kernel_ms is not None
-                                     else "events"),
-                       "call_ms": call_ms,
-                       # the plain version repeats the kernel's arithmetic in
-                       # eager torch: a correctness yardstick, not a speed one
-                       "plain_ms": plain_ms, "bytes": nbytes,
-                       "valid_steps": steps,
-                       "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-                       "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
-                                    else "operations")}
-                rows_out.append(row)
-                log("phase1-k2 " + json.dumps(row))
-    return {"rows": rows_out}
-
-
 # -- phase 2: the main path -----------------------------------------------------------
 
 
@@ -774,9 +770,9 @@ def drive_main_path(corpus, layout: str, card: str) -> dict:
                              "not the kernel")
     if launches["tile_fold_list"] <= 0:
         raise AssertionError("the main path launched K1's list fold no time")
-    if launches["tile_scan"] != 0:
-        raise AssertionError(f"the cold replay launched K1's per-tile entry "
-                             f"{launches['tile_scan']} times")
+    if launches["dense_window"] or launches["ragged_window"]:
+        raise AssertionError(f"the cold replay launched a window kernel: "
+                             f"{launches}")
     # the fold's device time per replay from CUDA events around the work
     # lists' launches alone; launches made here are not the main path's
     slab, ord_d = eng._fresh_slab(resident.b_pad)
@@ -796,8 +792,7 @@ def drive_main_path(corpus, layout: str, card: str) -> dict:
         "fold_s": folds, "pad_ratio": res.padded_events / corpus.num_events,
         "tiles_per_replay": tiles, "lists_per_replay": n_lists,
         "fold_device_ms": fold_device_ms,
-        "list_launches": launches["tile_fold_list"],
-        "k1_tile_launches": launches["tile_scan"],
+        "list_launches": launches["tile_fold_list"], "launches": launches,
         "wire_bytes": resident.wire_bytes,
         "device_mem_peak_bytes": torch.cuda.max_memory_allocated(),
     }
@@ -1083,22 +1078,48 @@ async def torn_row_reader(plane, n: int, stop, seen: dict):
         await asyncio.sleep(0)
 
 
-def profile_round_stats(prof, wall_s: float) -> dict:
+def profile_round_stats(prof, wall_s: float, windows: int, window_ops: int
+                        ) -> dict:
+    """The profiled round's device busy time and idle share, its window
+    kernels' launches and time, and its device operations by kind; with
+    ``window_ops``, the calls that enqueue device work made inside the
+    round's windows (uploads and kernel launches, counted on the host, not
+    traced), per window. The trace's window kernels must number one a
+    window: the device's own count of what the host count claims."""
     from torch.autograd import DeviceType
 
-    busy_us, k2_us, k2_n = 0.0, 0.0, 0
+    busy_us, win_us, win_n = 0.0, 0.0, 0
+    kinds: dict[str, list] = {}
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
             us = evt.time_range.elapsed_us()
             busy_us += us
-            if "ragged_fold_kernel" in evt.name:
-                k2_us += us
-                k2_n += 1
+            if "window_kernel" in evt.name:
+                win_us += us
+                win_n += 1
+                kind = "window kernels"
+            elif "Memcpy HtoD" in evt.name:
+                kind = "host to device copies"
+            elif "Memcpy DtoH" in evt.name:
+                kind = "device to host copies"
+            else:
+                kind = "other"
+            acc = kinds.setdefault(kind, [0, 0.0])
+            acc[0] += 1
+            acc[1] += us / 1e3
+    if win_n != windows:
+        raise AssertionError(f"the profiled round traced {win_n} window "
+                             f"kernels for {windows} windows")
     wall_us = wall_s * 1e6
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / wall_us if wall_us else None,
-            "k2_launches": k2_n,
-            "k2_ms_per_launch": k2_us / k2_n / 1e3 if k2_n else None}
+            "windows": windows,
+            "ops_per_window": window_ops / windows if windows else None,
+            "ops_per_window_source": "host count of the upload and launch "
+                                     "calls inside each window, not traced",
+            "device_ops": {k: {"count": v[0], "ms": v[1]} for k, v in kinds.items()},
+            "window_kernels_traced": win_n,
+            "window_kernel_ms_per_launch": win_us / win_n / 1e3 if win_n else None}
 
 
 async def drive_plane(card: str, *, aggregates: int, capacity: int,
@@ -1147,7 +1168,28 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
         return run
 
     plane._evict = timed_async("evict", plane._evict)
-    plane._run_window = timed("window", plane._run_window)
+    # the device operations each window enqueues: the uploads made inside
+    # _run_window (its thread marks it) and the window kernels' launches
+    in_window = threading.local()
+    uploads = {"window": 0}
+    upload = plane._upload
+
+    def counted_upload(arr):
+        if getattr(in_window, "on", False):
+            uploads["window"] += 1
+        return upload(arr)
+
+    run_window = timed("window", plane._run_window)
+
+    def marked_window(*a, **k):
+        in_window.on = True
+        try:
+            return run_window(*a, **k)
+        finally:
+            in_window.on = False
+
+    plane._upload = counted_upload
+    plane._run_window = marked_window
     torch.cuda.reset_peak_memory_stats()
     for k in fold_kernels.LAUNCHES:
         fold_kernels.LAUNCHES[k] = 0
@@ -1157,19 +1199,26 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
     seed_launches = dict(fold_kernels.LAUNCHES)
     for k in fold_kernels.LAUNCHES:
         fold_kernels.LAUNCHES[k] = 0
-    # the (width, lanes) of every window the rounds give K1's per-tile entry,
-    # so each is held against the plain version after the run
-    window_shapes: list = []
-    tile_scan = fold_kernels.tile_scan
+    # the shape of every window the rounds give each window kernel, so each
+    # is held against the plain version after the run
+    window_shapes: dict = {"dense": [], "ragged": []}
+    real = {kind: getattr(fold_kernels, f"{kind}_window")
+            for kind in window_shapes}
 
-    def tile_scan_seen(carry, words, *a, **k):
-        window_shapes.append(tuple(words.shape))
-        return tile_scan(carry, words, *a, **k)
+    def seen(kind):
+        def call(slab, ords, table, words, sides, **kw):
+            rows = words.shape[0] if kind == "ragged" else 0
+            width = kw["width"] if kind == "ragged" else words.shape[0]
+            window_shapes[kind].append((table.shape[1], width, rows))
+            return real[kind](slab, ords, table, words, sides, **kw)
+        return call
 
-    fold_kernels.tile_scan = tile_scan_seen
+    for kind in window_shapes:
+        setattr(fold_kernels, f"{kind}_window", seen(kind))
     stop = asyncio.Event()
-    seen = {"reads": 0, "rows": 0}
-    reader = asyncio.ensure_future(torn_row_reader(plane, aggregates, stop, seen))
+    seen_reads = {"reads": 0, "rows": 0}
+    reader = asyncio.ensure_future(torn_row_reader(plane, aggregates, stop,
+                                                   seen_reads))
     per_round = []
     profiled = None
     try:
@@ -1182,6 +1231,8 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
             # round before that
             if r == rounds:
                 torch.cuda.synchronize()
+                u0 = uploads["window"]
+                l0 = sum(fold_kernels.LAUNCHES.values())
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
                     a0 = time.perf_counter()
@@ -1190,7 +1241,10 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
                     await wait_lag_zero(plane, 300.0)
                     torch.cuda.synchronize()
                     wall = time.perf_counter() - w0
-                profiled = profile_round_stats(prof, wall)
+                n_win = sum(kw["windows"] for kw in ledger.rounds[n0:])
+                profiled = profile_round_stats(
+                    prof, wall, n_win, uploads["window"] - u0
+                    + sum(fold_kernels.LAUNCHES.values()) - l0)
             else:
                 a0 = time.perf_counter()
                 plog.append(aggs, rng)
@@ -1213,10 +1267,11 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
                     "appended": len(aggs), "append_ms": append_s * 1e3,
                     "wall_ms": wall * 1e3,
                     "profiled": r == rounds})
-            if seen["reads"] == 0:
+            if seen_reads["reads"] == 0:
                 await asyncio.sleep(0.01)
     finally:
-        fold_kernels.tile_scan = tile_scan
+        for kind, fn in real.items():
+            setattr(fold_kernels, f"{kind}_window", fn)
         stop.set()
         await reader
     refresh_launches = dict(fold_kernels.LAUNCHES)
@@ -1234,28 +1289,35 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
         raise AssertionError("no round evicted")
     if seed_launches["tile_fold_list"] <= 0:
         raise AssertionError("the seed launched K1's list fold no time")
-    if seed_launches["tile_scan"] != 0:
-        raise AssertionError("the seed launched K1's per-tile entry")
-    key = "ragged_fold" if dispatch == "bucketed" else "tile_scan"
-    if refresh_launches[key] <= 0:
-        raise AssertionError(f"the refresh rounds launched {key} no time")
-    if len(window_shapes) != refresh_launches["tile_scan"]:
-        raise AssertionError(f"{len(window_shapes)} windows reached K1's "
-                             f"per-tile entry, which launched "
-                             f"{refresh_launches['tile_scan']} times")
-    if seen["reads"] == 0:
+    if seed_launches["dense_window"] or seed_launches["ragged_window"]:
+        raise AssertionError("the seed launched a window kernel")
+    key = "ragged" if dispatch == "bucketed" else "dense"
+    windows = sum(x["windows"] for x in per_round)
+    if refresh_launches[f"{key}_window"] <= 0:
+        raise AssertionError(f"the refresh rounds launched the {key} window "
+                             f"kernel no time")
+    # each refresh window is ONE window-kernel launch, and nothing else
+    if (refresh_launches[f"{key}_window"] != windows
+            or sum(refresh_launches.values()) != windows
+            or len(window_shapes[key]) != windows):
+        raise AssertionError(
+            f"{windows} refresh windows made {refresh_launches} launches "
+            f"({len(window_shapes[key])} window calls), not one "
+            f"{key}-window launch each")
+    if seen_reads["reads"] == 0:
         raise AssertionError("the torn-row reader never read")
     return {
         "card": card, "dispatch": dispatch, "aggregates": aggregates,
         "capacity": capacity, "seed_events": int(lens.sum()),
         "log_build_s": log_s, "start_s": start_s, "seed": plane.seed_timing,
         "seed_launches": seed_launches,
-        "refresh_launches": refresh_launches,
-        "window_shapes": [[w, b, window_shapes.count((w, b))]
-                          for w, b in sorted(set(window_shapes))],
+        "refresh_launches": refresh_launches, "refresh_windows": windows,
+        "window_shapes": {k: [[*shape, v.count(shape)]
+                              for shape in sorted(set(v))]
+                          for k, v in window_shapes.items()},
         "rounds": per_round, "refresh_events_per_s": ev / (wall_ms / 1e3),
         "read_many_rows_per_s": rows_per_s,
-        "torn_reader": seen, "evictions": plane.stats["evictions"],
+        "torn_reader": seen_reads, "evictions": plane.stats["evictions"],
         "fallbacks": plane.stats["fallbacks"],
         "device_mem_peak_bytes": torch.cuda.max_memory_allocated(),
         "profiled_round": profiled}
@@ -1309,11 +1371,10 @@ def main() -> int:
         t0 = time.perf_counter()
         corpus = synth_counter_corpus(1_000_000, 100_000_000, seed=0)
         log(f"phase1 corpus_s: {time.perf_counter() - t0:.3f}")
-    k1 = klist = k2 = None
+    windows = klist = None
     if 1 in phases:
-        k1 = phase_kernels()
+        windows = phase_windows()
         klist = phase_list_kernel(corpus.events)
-        k2 = phase_ragged_kernel()
     main_rows = []
     if 2 in phases:
         main_rows.append(drive_main_path(corpus, "auto", card))
@@ -1324,91 +1385,70 @@ def main() -> int:
     plane = None
     if 4 in phases:
         plane = phase_plane(card)
-        checked = ({(w, b) for w, b, _ in PLANE_WINDOW_SHAPES} if k1 is not None
-                   else set())
-        for row in check_plane_window_shapes(plane["dense"]["window_shapes"],
-                                             checked):
-            if k1 is not None:
-                k1["rows"].append(row)
+        checked = ({(r["kind"], r["lanes"], r["width"],
+                     r["rows"] if r["kind"] == "ragged" else 0)
+                    for r in windows["rows"]} if windows is not None else set())
+        shapes = {"dense": plane["dense"]["window_shapes"]["dense"],
+                  "ragged": plane["main"]["window_shapes"]["ragged"]}
+        rows = check_plane_window_shapes(shapes, checked)
+        if windows is not None:
+            windows["rows"].extend(rows)
 
-    if k1 is not None:
+    if windows is not None:
         # launches on each main path, read right after that path ran with
         # the counts at 0 (None: the path did not run in this call)
         main_p = plane["main"] if plane else None
         dense_p = plane["dense"] if plane else None
-        k1_paths = {
-            "cold_replay_auto": (main_rows[0]["k1_tile_launches"] if main_rows
-                                 else None),
-            "cold_replay_flat": (main_rows[1]["k1_tile_launches"] if main_rows
-                                 else None),
-            "plane_seed": main_p["seed_launches"]["tile_scan"] if plane else None,
-            "plane_refresh": (main_p["refresh_launches"]["tile_scan"]
-                              if plane else None),
-            "plane_dense_seed": (dense_p["seed_launches"]["tile_scan"]
-                                 if plane else None),
-            "plane_dense_refresh": (dense_p["refresh_launches"]["tile_scan"]
-                                    if plane else None),
-        }
-        list_paths = {
-            "cold_replay_auto": (main_rows[0]["list_launches"] if main_rows
-                                 else None),
-            "cold_replay_flat": (main_rows[1]["list_launches"] if main_rows
-                                 else None),
-            "plane_seed": (main_p["seed_launches"]["tile_fold_list"]
-                           if plane else None),
-            "plane_dense_seed": (dense_p["seed_launches"]["tile_fold_list"]
-                                 if plane else None),
-        }
-        k2_paths = {"plane_refresh": (main_p["refresh_launches"]["ragged_fold"]
-                                      if plane else None)}
-        # the per-tile entry's line: the plane's heavy-round window (counter,
-        # derived ordinal, width 512, 32,768 lanes, the first window)
-        head = next(r for r in k1["rows"]
-                    if r["case"] == "counter/derived"
-                    and (r["width"], r["bs"], r["shift"]) == PLANE_WINDOW_SHAPES[1])
-        kernels = [{
-            "name": "tile_scan",
-            "route": "cuda",
-            "source": "surge_tpu_torch/csrc/tile_scan.cu",
-            "replaces": "surge_tpu/replay/pallas_fold.py:86",
-            "launches": total_launches(k1_paths),
-            "launches_by_path": k1_paths,
-            "max_abs_err": max(r["max_abs_err"] for r in k1["rows"]),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": None,  # no PyTorch call folds a per-lane sequence
-            "timed_at": [head["width"], head["bs"]],
-            "window_shapes": dense_p["window_shapes"] if plane else None,
-        }]
+
+        def launches(row, phase, name):
+            return row[phase][name] if row else None
+
+        paths = {name: {
+            "cold_replay_auto": launches(main_rows[0] if main_rows else None,
+                                         "launches", name),
+            "cold_replay_flat": launches(main_rows[1] if main_rows else None,
+                                         "launches", name),
+            "plane_seed": launches(main_p, "seed_launches", name),
+            "plane_refresh": launches(main_p, "refresh_launches", name),
+            "plane_dense_seed": launches(dense_p, "seed_launches", name),
+            "plane_dense_refresh": launches(dense_p, "refresh_launches", name),
+        } for name in fold_kernels.LAUNCHES}
+        kernels = []
+        for kind, replaces in (("dense", "surge_tpu/replay/pallas_fold.py:86"),
+                               ("ragged", "surge_tpu/replay/pallas_fold.py:170")):
+            # the window's line: the plane's layout (counter, derived
+            # ordinal) at WINDOW_HEAD's shape, every case's error
+            rows = [r for r in windows["rows"] if r["kind"] == kind]
+            head = next(r for r in rows
+                        if r["case"] == f"counter/derived {WINDOW_HEAD[kind]}")
+            kernels.append({
+                "name": f"{kind}_window",
+                "route": "cuda",
+                "source": ("surge_tpu_torch/csrc/tile_scan.cu" if kind == "dense"
+                           else "surge_tpu_torch/csrc/ragged_fold.cu"),
+                "replaces": replaces,
+                "launches": total_launches(paths[f"{kind}_window"]),
+                "launches_by_path": paths[f"{kind}_window"],
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": head["ms"], "plain_ms": head["plain_ms"],
+                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                "library_ms": None,  # no PyTorch call folds a per-lane sequence
+                "timed_at": head["case"], "lanes_by_path": head["lanes_by_path"],
+                "ms_by_shape": {r["case"]: r["ms"] for r in rows if "ms" in r},
+            })
         # the list fold's line: one cold replay's work lists on the bench
         # plan (counter, derived ordinal, dense), both launches together
         head = klist["rows"][0]
-        kernels.append({
+        kernels.insert(1, {
             "name": "tile_fold_list",
             "route": "cuda",
             "source": "surge_tpu_torch/csrc/tile_scan.cu",
             "replaces": "surge_tpu/replay/pallas_fold.py:86",
-            "launches": total_launches(list_paths),
-            "launches_by_path": list_paths,
+            "launches": total_launches(paths["tile_fold_list"]),
+            "launches_by_path": paths["tile_fold_list"],
             "max_abs_err": max(r["max_abs_err"] for r in klist["rows"]),
             "ms": head["ms"], "ms_per_launch": head["ms_per_launch"],
             "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": None,  # no PyTorch call folds a per-lane sequence
-        })
-        # K2's line: the steady refresh bucket (counter, derived ordinal,
-        # bs 4096, width 8, rows 32768)
-        head = next(r for r in k2["rows"]
-                    if r["case"] == "counter/derived" and r["bs"] == 4096)
-        kernels.append({
-            "name": "ragged_fold",
-            "route": "cuda",
-            "source": "surge_tpu_torch/csrc/ragged_fold.cu",
-            "replaces": "surge_tpu/replay/pallas_fold.py:170",
-            "launches": total_launches(k2_paths),
-            "launches_by_path": k2_paths,
-            "max_abs_err": max(r["max_abs_err"] for r in k2["rows"]),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None,  # no PyTorch call folds a per-lane sequence
         })

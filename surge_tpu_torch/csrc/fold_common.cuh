@@ -1,18 +1,24 @@
-// The decode and the model steps shared by the fold kernels K1
-// (tile_scan.cu) and K2 (ragged_fold.cu).
+// The decode, the model steps and the slab-by-slot window helpers shared by
+// the fold kernels K1 (tile_scan.cu) and K2 (ragged_fold.cu).
 //
-// Both kernels decode one packed u32 wire word per event (type bits,
-// bit-packed fields, side values, the derived ordinal) and apply the model's
+// Every kernel decodes one packed wire word per event (type bits, bit-packed
+// fields, side values, the derived ordinal) and applies the model's
 // branchless select step to a lane's carry held in registers. The wire layout
 // arrives as DecodeArgs; the step is a per-model device functor chosen by
 // ReplaySpec.kernel_step. Integer sums use unsigned arithmetic (wrapping, as
 // int32 wraps in the reference); f32 state is carried as its bit pattern, so
 // a copy is exact; a bool state is one byte.
 //
-// DecodeArgs and StateArgs are mirrored by ctypes.Structures in
-// surge_tpu_torch/replay/fold_kernels.py: keep both in step. They live in a
-// named namespace so the extern "C" entry points that take them keep
-// external linkage.
+// The two refresh-window kernels (K1's dense window, K2's ragged window) read
+// and write the resident state slab by slot: SlabArgs carries the slab, its
+// per-slot ordinals and one window's lane table (LaneRow), and load_slot /
+// store_slot do the admission select, the slot-indexed carry load and store,
+// and the ordinal update of the reference's window program.
+//
+// DecodeArgs, StateArgs and SlabArgs are mirrored by ctypes.Structures in
+// surge_tpu_torch/replay/fold_kernels.py, whose loader checks their sizes
+// (struct_size): keep both in step. They live in a named namespace so the
+// extern "C" entry points that take them keep external linkage.
 
 #pragma once
 
@@ -26,6 +32,11 @@ namespace surge_fold {
 constexpr int kThreads = 256;
 constexpr int kMaxCols = 8;
 constexpr int kMaxState = 8;
+// lanes per block of the two refresh-window kernels: 64 timed fastest of 64,
+// 128 and 256 at the plane's windows on an H100 (PERF.md, the kernel table)
+constexpr int kWindowLanes = 64;
+// rows a lane loads from device memory ahead of the dependent steps
+constexpr int kPrefetch = 8;
 
 // where a union column's value comes from
 enum ColKind : int32_t { kPacked = 0, kSide = 1, kOrdinal = 2 };
@@ -115,6 +126,119 @@ __device__ __forceinline__ void store_carry(const StateArgs& sa, int lane,
   }
 }
 
+// the rows of a refresh window's lane table: int32 [rows, lanes], one upload
+// per window (fold_kernels.window_table). The admission rows follow only on
+// a plan's first window (SlabArgs.admit); each admitted value is its field's
+// 32-bit pattern (a bool as 0 or 1).
+enum LaneRow : int32_t {
+  kRowSlot = 0,      // the lane's slab slot; the scratch row `capacity` pads
+  kRowCount = 1,     // events the window folds into the lane
+  kRowStart = 2,     // first flat row of the lane's window (ragged)
+  kRowAdmit = 3,     // 1: the lane starts from its admitted row
+  kRowAdmitOrd = 4,  // the admitted ordinal base
+  kRowAdmitVal = 5,  // the admitted values, one row per state field
+};
+
+// the resident slab and one refresh window's lane table
+struct SlabArgs {
+  int32_t n_state;
+  int32_t kind[kMaxState];
+  void* col[kMaxState];   // slab columns [capacity + 1], read and written by slot
+  int32_t* ords;          // [capacity + 1] per-slot ordinal bases
+  const int32_t* table;   // [kRowAdmitVal + n_state (admit) or kRowAdmit, lanes]
+  int32_t capacity;       // the scratch row's slot: a lane there is padding
+  int32_t lanes;          // lanes in the window
+  int32_t admit;          // 1: the table holds the admission rows
+};
+
+// one lane of a refresh window
+struct Lane {
+  int32_t slot;
+  int32_t count;
+  bool admitted;
+  bool live;  // not padding: padding lanes target the scratch row, which no
+              // gather reads, so they load and store nothing
+};
+
+// the path a window kernel's block took, reported for each of its lanes
+// into the caller's int8 buffer when it passes one
+enum WindowPath : int8_t { kPathNone = -1, kPathGlobal = 0, kPathStaged = 1 };
+
+__device__ __forceinline__ void report_path(int8_t* paths, int lane, int lanes,
+                                            WindowPath path) {
+  if (paths != nullptr && lane < lanes) paths[lane] = path;
+}
+
+__device__ __forceinline__ int32_t table_at(const SlabArgs& sa, int row,
+                                            int lane) {
+  return sa.table[static_cast<size_t>(row) * sa.lanes + lane];
+}
+
+// the lane's slot; a live lane's count and admit flag (a padding lane's
+// are never read)
+__device__ __forceinline__ Lane lane_of(const SlabArgs& sa, int lane) {
+  Lane l{table_at(sa, kRowSlot, lane), 0, false, false};
+  l.live = l.slot != sa.capacity;
+  if (l.live) {
+    l.count = table_at(sa, kRowCount, lane);
+    l.admitted = sa.admit != 0 && table_at(sa, kRowAdmit, lane) != 0;
+  }
+  return l;
+}
+
+// The lane's carry and ordinal base (returned). An admitted lane starts from
+// its admitted values and ordinal: the reference scatters the admission into
+// the slab and then gathers the lanes' slots, which is the same because every
+// admitted slot is a lane of its plan. Any other lane starts from its slot.
+template <class Step>
+__device__ __forceinline__ uint32_t load_slot(const SlabArgs& sa, int lane,
+                                              const Lane& l,
+                                              uint32_t (&st)[Step::kState]) {
+  if (l.admitted) {
+#pragma unroll
+    for (int i = 0; i < Step::kState; ++i) {
+      const uint32_t v = static_cast<uint32_t>(table_at(sa, kRowAdmitVal + i, lane));
+      st[i] = sa.kind[i] == kByte ? static_cast<uint32_t>(v != 0u) : v;
+    }
+    return static_cast<uint32_t>(table_at(sa, kRowAdmitOrd, lane));
+  }
+#pragma unroll
+  for (int i = 0; i < Step::kState; ++i) {
+    st[i] = sa.kind[i] == kByte
+                ? static_cast<uint32_t>(
+                      static_cast<const uint8_t*>(sa.col[i])[l.slot] != 0)
+                : static_cast<const uint32_t*>(sa.col[i])[l.slot];
+  }
+  return static_cast<uint32_t>(sa.ords[l.slot]);
+}
+
+// The folded carry back into the lane's slot, and the slot's ordinal base
+// advanced by the window's count (wrapping, as the reference's int32 add).
+template <class Step>
+__device__ __forceinline__ void store_slot(const SlabArgs& sa, const Lane& l,
+                                           const uint32_t (&st)[Step::kState],
+                                           uint32_t base) {
+#pragma unroll
+  for (int i = 0; i < Step::kState; ++i) {
+    if (sa.kind[i] == kByte) {
+      static_cast<uint8_t*>(sa.col[i])[l.slot] = st[i] != 0u ? 1 : 0;
+    } else {
+      static_cast<uint32_t*>(sa.col[i])[l.slot] = st[i];
+    }
+  }
+  sa.ords[l.slot] = static_cast<int32_t>(base + static_cast<uint32_t>(l.count));
+}
+
+// the little-endian u32 word of NB wire bytes (NB a compile-time constant:
+// a runtime byte loop doubles a fold's time on the card)
+template <int NB>
+__device__ __forceinline__ uint32_t load_word(const uint8_t* p) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) w |= static_cast<uint32_t>(p[b]) << (8 * b);
+  return w;
+}
+
 // Decode one event word and apply the step. side_row indexes the side
 // columns; valid false (a slot past the lane's length) and type ids at or
 // above num_types decode to padding (-1), which carries the state through.
@@ -138,6 +262,34 @@ __device__ __forceinline__ void fold_word(const DecodeArgs& dec,
   Step::apply(st, tid, ev);
 }
 
+// Fold steps t in [t0, t1) of one lane straight from device memory: step t
+// decodes the NB wire bytes of row row_of(t) (its side values at the same
+// row) with the derived ordinal ob + t + 1. The loads of kPrefetch rows are
+// issued before the dependent steps use them.
+template <class Step, int NB, class RowOf>
+__device__ __forceinline__ void fold_rows_global(const DecodeArgs& dec,
+                                                 uint32_t (&st)[Step::kState],
+                                                 const uint8_t* words, int t0,
+                                                 int t1, RowOf row_of,
+                                                 uint32_t ob) {
+  for (int t = t0; t < t1; t += kPrefetch) {
+    uint32_t w[kPrefetch];
+#pragma unroll
+    for (int u = 0; u < kPrefetch; ++u) {
+      w[u] = t + u < t1
+                 ? load_word<NB>(words + static_cast<size_t>(row_of(t + u)) * NB)
+                 : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kPrefetch; ++u) {
+      if (t + u < t1) {
+        fold_word<Step>(dec, st, w[u], static_cast<size_t>(row_of(t + u)), true,
+                        ob + static_cast<uint32_t>(t + u) + 1u);
+      }
+    }
+  }
+}
+
 // the step ids of the C interfaces, in the order of
 // fold_kernels.KERNEL_STEPS: 0 counter, 1 bank_account
 inline int step_shape(int step, int* n_cols, int* n_state) {
@@ -145,6 +297,17 @@ inline int step_shape(int step, int* n_cols, int* n_state) {
     case 0: *n_cols = CounterStep::kCols; *n_state = CounterStep::kState; return 0;
     case 1: *n_cols = BankAccountStep::kCols; *n_state = BankAccountStep::kState; return 0;
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// the size of each mirrored struct (0 DecodeArgs, 1 StateArgs, 2 SlabArgs),
+// so the ctypes mirrors can be checked against them
+inline int struct_size(int which) {
+  switch (which) {
+    case 0: return static_cast<int>(sizeof(DecodeArgs));
+    case 1: return static_cast<int>(sizeof(StateArgs));
+    case 2: return static_cast<int>(sizeof(SlabArgs));
+    default: return -1;
   }
 }
 

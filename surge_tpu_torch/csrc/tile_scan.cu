@@ -7,13 +7,25 @@
 // applies the model's branchless select step to the lane's carry. The decode
 // and the model steps are the ones K2 uses (fold_common.cuh). Two entries:
 //
-// surge_tile_scan — one tile. One thread per lane, blocks of kThreads lanes,
-// a grid of ceil(bs / kThreads), the ragged edge masked; the carry lives in
-// registers for all width steps and step t reads the time-major
-// words[t * bs + lane], coalesced across a warp. Its one caller is the
-// plane's dense refresh window, once per window: 32,768 lanes (128 blocks,
-// under one an SM) of width 256 or 512, most lanes holding a few events, yet
-// every thread walks all width steps and waits one memory latency a step.
+// surge_dense_window — one refresh window of the resident state plane's
+// dense dispatch, run against the slab by slot: the K1 tile fold together
+// with the rest of the reference's window program
+// (surge_tpu/replay/resident_state.py:435-453, `refresh`). Lane b of the
+// window (its lane table, fold_common.cuh LaneRow) starts from its admitted
+// row on a plan's first window, else from slab[slot[b]]; folds the
+// time-major wire bytes words[t, b] (u8 [width, lanes, nbytes]) for
+// t < min(count[b], width), with the derived ordinal base + t + 1; stores
+// its carry back by slot and advances ords[slot] by the count. Padding lanes
+// (slot == capacity) load and store nothing, and a block whose lanes all pad
+// exits at once (live lanes come first). Design: a window holds ~8,000 live
+// lanes of 32,768, most with a few events and a tail of up to 512, so the
+// block's longest lane bounds the rows it stages. The block stages its lanes'
+// rows [0, longest) through the two-stage shared-memory ring the list fold
+// uses (Ring: one cp.async.bulk per row and per side row, issued by warp 0
+// and completing on the stage's mbarrier), and each lane stops at its count;
+// off TMA's 16-byte rules the block's lanes read their slots from device
+// memory (fold_column). Blocks are kWindowLanes (64) lanes; the launch
+// reports each block's path when the caller asks.
 //
 // surge_tile_fold_list — a whole work list of the resident replay (all big
 // tiles, or all small tiles, of a plan) folded into the state slab in place,
@@ -47,21 +59,28 @@
 //   not copied. Then every thread walks its lane column out of shared memory.
 //   Where a copy would break TMA's 16-byte rules (bs * nbytes not a multiple
 //   of 16: bs 8 at one byte a word) the chunk takes the plain-load path inside
-//   the kernel: each thread reads its slots from global memory.
+//   the kernel: each thread reads its slots from global memory
+//   (fold_column). The ring and both paths are the dense window's.
 // - Flat source (flat_wire u8 [rows, nbytes], sides [rows], starts): lane b's
 //   tile row t is clamp(starts[b] + t_base, 0, rows - width) + t, exactly as
 //   the slab index clamps. Adjacent lanes' rows lie a lane's length apart, so
 //   nothing is staged: each thread issues the loads of kPrefetch rows before
-//   the dependent steps use them (their redesign joins K2's).
-// Bound: every input byte the list needs read once — the wire bytes and side
-// values of each slot some lane folds (t < lens_rel), each touched lane's
-// length, ordinal (and start) and its carry in and out. At the bench plan
+//   the dependent steps use them (fold_rows_global, as K2's global path).
+// Bound of the dense window: the wire bytes and side values of each slot a
+// lane folds, every lane's slot, each live lane's count (and admit flag), an
+// admitted lane's ordinal and values, each live lane's carry and ordinal in
+// and out by slot (chip_smoke.py window_work counts them); the longest
+// lane's dependent steps set its time.
+// Bound of the list fold: every input byte the list needs read once — the
+// wire bytes and side values of each slot some lane folds (t < lens_rel),
+// each touched lane's length, ordinal (and start) and its carry in and out. At the bench plan
 // (1M lanes, 100M events, one wire byte an event) that is ~124 MB, ~37 us at
 // 3.35 TB/s; the longest lane walks 1,428 dependent steps.
 //
 // Interface: plain C functions that launch on the given stream and return
 // the cudaError_t of the launch; loaded with ctypes by
-// surge_tpu_torch/replay/fold_kernels.py (which mirrors ListArgs).
+// surge_tpu_torch/replay/fold_kernels.py (which mirrors ListArgs and
+// SlabArgs).
 
 #include <cstddef>
 #include <cstdint>
@@ -102,18 +121,7 @@ struct ListArgs {
 constexpr int32_t kNoopTileT = 1 << 29;
 constexpr int kStages = 2;
 constexpr int kStageBytes = 16384;
-constexpr int kPrefetch = 8;
 constexpr int kUnroll = 4;
-
-// the little-endian u32 word of NB wire bytes (NB a compile-time constant:
-// a runtime byte loop doubles the fold's time on the card)
-template <int NB>
-__device__ __forceinline__ uint32_t load_word(const uint8_t* p) {
-  uint32_t w = 0;
-#pragma unroll
-  for (int b = 0; b < NB; ++b) w |= static_cast<uint32_t>(p[b]) << (8 * b);
-  return w;
-}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -152,6 +160,149 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
       "r"(smem_u32(bar)) : "memory");
+}
+
+// The two-stage ring both dense kernels stage time rows through. A stage
+// holds `chunk` rows of the block's kLanes lanes: the wire bytes
+// [chunk][kLanes][NB], then one [chunk][kLanes] u32 region per side column.
+// Warp 0 issues one cp.async.bulk (TMA) copy per row and per side row,
+// completing on the stage's mbarrier; every thread then folds its lane
+// column out of the stage.
+// The stages live in the launch's dynamic shared memory, ring_mem; stage s
+// completes on the mbarrier ring_full[s].
+extern __shared__ __align__(128) unsigned char ring_mem[];
+__shared__ __align__(8) uint64_t ring_full[kStages];
+
+template <class Step, int NB, int kLanes>
+struct Ring {
+  int chunk;
+  int n_side;
+  int slot[Step::kCols];  // each column's side region; -1: not a side column
+  size_t word_bytes, stage_bytes;
+
+  __device__ __forceinline__ Ring(const DecodeArgs& dec, int chunk_)
+      : chunk(chunk_), n_side(0) {
+#pragma unroll
+    for (int c = 0; c < Step::kCols; ++c) {
+      slot[c] = dec.kind[c] == kSide ? n_side++ : -1;
+    }
+    word_bytes = static_cast<size_t>(chunk) * kLanes * NB;
+    stage_bytes = word_bytes + static_cast<size_t>(chunk) * kLanes * 4 * n_side;
+  }
+
+  // warp 0: stage rows [row0, row0 + rows) of n lanes into stage s from
+  // block column dst on; row t's lanes start at element t * stride + col of
+  // the words and of each side column. The list fold writes these steps out
+  // in its own loop (see there): change both together.
+  __device__ __forceinline__ void issue(const DecodeArgs& dec,
+                                        const uint8_t* words, int s,
+                                        size_t row0, size_t stride, size_t col,
+                                        int rows, int n, int dst) const {
+    const int j = threadIdx.x;
+    unsigned char* base = ring_mem + s * stage_bytes;
+    if (j == 0) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_arrive_tx(&ring_full[s], static_cast<uint32_t>(rows) * n * (NB + 4 * n_side));
+    }
+    __syncwarp();
+    for (int r = j; r < rows; r += 32) {
+      const size_t g = (row0 + r) * stride + col;
+      const size_t d = static_cast<size_t>(r) * kLanes + dst;
+      bulk_copy(base + d * NB, words + g * NB, n * NB, &ring_full[s]);
+#pragma unroll
+      for (int c = 0; c < Step::kCols; ++c) {
+        if (slot[c] >= 0) {
+          bulk_copy(base + word_bytes + (static_cast<size_t>(slot[c]) * chunk * kLanes + d) * 4,
+                    dec.side[c] + g, n * 4, &ring_full[s]);
+        }
+      }
+    }
+  }
+
+  // warp 0: stage s receives no copy this turn; complete its phase
+  __device__ __forceinline__ void skip(int s) const {
+    if (threadIdx.x == 0) mbar_arrive(&ring_full[s]);
+  }
+
+  // wait for the q-th fill of the ring (its stage q % kStages)
+  __device__ __forceinline__ void wait(int q) const {
+    mbar_wait(&ring_full[q % kStages], (q / kStages) & 1);
+  }
+
+  // fold rows [r_first, r_end) of stage s, which holds rows from r_first
+  // on, into block column col's carry, with the derived ordinal ob + r + 1
+  __device__ __forceinline__ void fold(const DecodeArgs& dec,
+                                       uint32_t (&st)[Step::kState], int s,
+                                       int r_first, int r_end, int col,
+                                       uint32_t ob) const {
+    const unsigned char* base = ring_mem + s * stage_bytes;
+    DecodeArgs d = dec;  // side values read from the stage
+#pragma unroll
+    for (int c = 0; c < Step::kCols; ++c) {
+      if (slot[c] >= 0) {
+        d.side[c] = reinterpret_cast<const uint32_t*>(
+            base + word_bytes + static_cast<size_t>(slot[c]) * chunk * kLanes * 4);
+      }
+    }
+#pragma unroll kUnroll
+    for (int r = r_first; r < r_end; ++r) {
+      const size_t row = static_cast<size_t>(r - r_first) * kLanes + col;
+      fold_word<Step>(d, st, load_word<NB>(base + row * NB), row, true,
+                      ob + static_cast<uint32_t>(r) + 1u);
+    }
+  }
+};
+
+// every thread of a block of kLanes: the block's largest v, with the ring's
+// barriers set up (ends on __syncthreads)
+template <int kLanes>
+__device__ __forceinline__ int ring_setup(int32_t* warp_max, int v) {
+  const int m = __reduce_max_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&ring_full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  int r = warp_max[0];
+#pragma unroll
+  for (int w = 1; w < kLanes / 32; ++w) r = max(r, warp_max[w]);
+  return r;
+}
+
+// rows a stage of kLanes lanes holds (at most kStageBytes, at most width)
+// and the ring's shared memory
+inline int ring_chunk(const DecodeArgs* dec, int lanes, int nbytes, int width,
+                      size_t* smem) {
+  int n_side = 0;
+  for (int c = 0; c < dec->n_cols; ++c) n_side += dec->kind[c] == kSide;
+  const int per_row = lanes * (nbytes + 4 * n_side);
+  int chunk = kStageBytes / per_row;
+  chunk = chunk < 1 ? 1 : (chunk > width ? width : chunk);
+  *smem = static_cast<size_t>(kStages) * chunk * per_row;
+  return chunk;
+}
+
+// Fold rows [r0, r_end) of one lane column straight from device memory:
+// row r at element col + r * stride of the words and of each side column,
+// with the derived ordinal ob + r + 1 (the dense kernels' path off TMA's
+// rules)
+template <class Step, int NB>
+__device__ __forceinline__ void fold_column(const DecodeArgs& dec,
+                                            uint32_t (&st)[Step::kState],
+                                            const uint8_t* words, size_t col,
+                                            size_t stride, int r0, int r_end,
+                                            uint32_t ob) {
+#pragma unroll kUnroll
+  for (int r = r0; r < r_end; ++r) {
+    const size_t g = col + static_cast<size_t>(r) * stride;
+    fold_word<Step>(dec, st, load_word<NB>(words + g * NB), g, true,
+                    ob + static_cast<uint32_t>(r) + 1u);
+  }
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // one chunk of the block's walk: rows [r0, r0 + rows) of list entry e (tile k)
@@ -196,8 +347,6 @@ template <class Step, int NB>
 __global__ void __launch_bounds__(kThreads)
 list_fold_dense_kernel(const ListArgs la, const DecodeArgs dec,
                        const StateArgs sa, int chunk) {
-  extern __shared__ __align__(128) unsigned char stage_mem[];
-  __shared__ __align__(8) uint64_t full[kStages];
   __shared__ int32_t warp_max[kThreads / 32];
 
   const int j = threadIdx.x;
@@ -206,7 +355,6 @@ list_fold_dense_kernel(const ListArgs la, const DecodeArgs dec,
   const bool live = lane < la.b_pad;
   const int e0 = la.blk_off[blockIdx.x];
   const int e1 = la.blk_off[blockIdx.x + 1];
-  constexpr int nb = NB;
 
   uint32_t st[Step::kState];
   int32_t len = 0;
@@ -217,48 +365,34 @@ list_fold_dense_kernel(const ListArgs la, const DecodeArgs dec,
     ord = static_cast<uint32_t>(la.ord[lane]);
   }
   // the block's longest lane bounds the rows any tile stages
-  const int m = __reduce_max_sync(0xffffffffu, live ? len : 0);
-  if ((j & 31) == 0) warp_max[j >> 5] = m;
-  if (j == 0) {
-    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  int blk_len = warp_max[0];
-#pragma unroll
-  for (int w = 1; w < kThreads / 32; ++w) blk_len = max(blk_len, warp_max[w]);
+  const int blk_len = ring_setup<kThreads>(warp_max, live ? len : 0);
+  const Ring<Step, NB, kThreads> ring(dec, chunk);
 
-  // a stage: words [chunk][kThreads][nbytes], then one [chunk][kThreads] u32
-  // region per side column
-  int slot[Step::kCols];
-  int n_side = 0;
-#pragma unroll
-  for (int c = 0; c < Step::kCols; ++c) slot[c] = dec.kind[c] == kSide ? n_side++ : -1;
-  const size_t word_bytes = static_cast<size_t>(chunk) * kThreads * nb;
-  const size_t stage_bytes = word_bytes + static_cast<size_t>(chunk) * kThreads * 4 * n_side;
-
-  // warp 0 stages chunk c into stage s (or, off the bulk path, only arrives)
+  // warp 0 stages chunk c into stage s (or, off the bulk path, only
+  // arrives). These are Ring::issue's steps written out: as a call, nvcc
+  // gives the one-byte counter kernel 62 registers instead of 48, and the
+  // bench plan's big list ran 8% slower on an H100 (chip_smoke.py phase 1)
   auto issue = [&](const Chunk& c, int s) {
     const Span sp = span_of(la, la.i0s[c.k], lane0);
     if (!sp.bulk) {
-      if (j == 0) mbar_arrive(&full[s]);
+      ring.skip(s);
       return;
     }
-    unsigned char* base = stage_mem + s * stage_bytes;
+    unsigned char* base = ring_mem + s * ring.stage_bytes;
     if (j == 0) {
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      mbar_arrive_tx(&full[s], static_cast<uint32_t>(c.rows) * sp.n * (nb + 4 * n_side));
+      mbar_arrive_tx(&ring_full[s], static_cast<uint32_t>(c.rows) * sp.n * (NB + 4 * ring.n_side));
     }
     __syncwarp();
     for (int r = j; r < c.rows; r += 32) {
       const size_t g = (static_cast<size_t>(c.k) * la.width + c.r0 + r) * la.bs + sp.col;
       const size_t d = static_cast<size_t>(r) * kThreads + sp.dst;
-      bulk_copy(base + d * nb, la.words + g * nb, sp.n * nb, &full[s]);
+      bulk_copy(base + d * NB, la.words + g * NB, sp.n * NB, &ring_full[s]);
 #pragma unroll
       for (int cc = 0; cc < Step::kCols; ++cc) {
-        if (slot[cc] >= 0) {
-          bulk_copy(base + word_bytes + (static_cast<size_t>(slot[cc]) * chunk * kThreads + d) * 4,
-                    dec.side[cc] + g, sp.n * 4, &full[s]);
+        if (ring.slot[cc] >= 0) {
+          bulk_copy(base + ring.word_bytes + (static_cast<size_t>(ring.slot[cc]) * chunk * kThreads + d) * 4,
+                    dec.side[cc] + g, sp.n * 4, &ring_full[s]);
         }
       }
     }
@@ -272,36 +406,19 @@ list_fold_dense_kernel(const ListArgs la, const DecodeArgs dec,
   }
   for (int q = 0; cons.e < e1; ++q) {
     const int s = q % kStages;
-    mbar_wait(&full[s], (q / kStages) & 1);
+    ring.wait(q);
     const int i0 = la.i0s[cons.k];
     if (live && lane >= i0 && lane < i0 + la.bs) {
       const int32_t tb = la.t_bases[cons.k];
       const int r_end = min(cons.r0 + cons.rows, min(len - tb, la.width));
       const uint32_t ob = ord + static_cast<uint32_t>(min(tb, kNoopTileT - 1));
       if (span_of(la, i0, lane0).bulk) {
-        const unsigned char* base = stage_mem + s * stage_bytes;
-        DecodeArgs d = dec;  // side values read from the stage
-#pragma unroll
-        for (int cc = 0; cc < Step::kCols; ++cc) {
-          if (slot[cc] >= 0) {
-            d.side[cc] = reinterpret_cast<const uint32_t*>(
-                base + word_bytes + static_cast<size_t>(slot[cc]) * chunk * kThreads * 4);
-          }
-        }
-#pragma unroll kUnroll
-        for (int r = cons.r0; r < r_end; ++r) {
-          const size_t row = static_cast<size_t>(r - cons.r0) * kThreads + j;
-          fold_word<Step>(d, st, load_word<NB>(base + row * nb), row, true,
-                          ob + static_cast<uint32_t>(r) + 1u);
-        }
+        ring.fold(dec, st, s, cons.r0, r_end, j, ob);
       } else {
-        const size_t col = static_cast<size_t>(cons.k) * la.width * la.bs + (lane - i0);
-#pragma unroll kUnroll
-        for (int r = cons.r0; r < r_end; ++r) {
-          const size_t g = col + static_cast<size_t>(r) * la.bs;
-          fold_word<Step>(dec, st, load_word<NB>(la.words + g * nb), g, true,
-                          ob + static_cast<uint32_t>(r) + 1u);
-        }
+        fold_column<Step, NB>(
+            dec, st, la.words,
+            static_cast<size_t>(cons.k) * la.width * la.bs + (lane - i0), la.bs,
+            cons.r0, r_end, ob);
       }
     }
     __syncthreads();  // every thread is done with stage s
@@ -322,7 +439,6 @@ list_fold_flat_kernel(const ListArgs la, const DecodeArgs dec,
   if (lane >= la.b_pad) return;
   const int e0 = la.blk_off[blockIdx.x];
   const int e1 = la.blk_off[blockIdx.x + 1];
-  constexpr int nb = NB;
 
   uint32_t st[Step::kState];
   load_carry<Step>(sa, lane, st);
@@ -341,56 +457,106 @@ list_fold_flat_kernel(const ListArgs la, const DecodeArgs dec,
     int64_t s0 = start + tb;
     s0 = s0 < 0 ? 0 : (s0 > last ? last : s0);
     const uint32_t ob = ord + static_cast<uint32_t>(min(tb, kNoopTileT - 1));
-    for (int r = 0; r < n; r += kPrefetch) {
-      uint32_t w[kPrefetch];
-#pragma unroll
-      for (int u = 0; u < kPrefetch; ++u) {
-        w[u] = r + u < n ? load_word<NB>(la.words + (s0 + r + u) * nb) : 0u;
-      }
-#pragma unroll
-      for (int u = 0; u < kPrefetch; ++u) {
-        if (r + u < n) {
-          fold_word<Step>(dec, st, w[u], static_cast<size_t>(s0 + r + u), true,
-                          ob + static_cast<uint32_t>(r + u) + 1u);
-        }
-      }
-    }
+    fold_rows_global<Step, NB>(dec, st, la.words, 0, n,
+                               [&](int r) { return s0 + r; }, ob);
   }
   store_carry<Step>(sa, lane, st);
 }
 
-template <class Step>
-__global__ void __launch_bounds__(kThreads)
-tile_scan_kernel(const DecodeArgs dec, const StateArgs sa,
-                 const uint32_t* __restrict__ words,
-                 const int32_t* __restrict__ lens_rel,
-                 const int32_t* __restrict__ ord_rel, int width, int bs) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= bs) return;
+// K1's dense refresh window (see the head of this file): blocks of
+// kWindowLanes lanes; chunk rows a stage. A block stages through the ring
+// when every row copy keeps TMA's 16-byte rules (the words and side columns
+// start on 16 bytes, a time row's bytes and the block's are multiples of
+// 16), else its lanes load from device memory
+template <class Step, int NB>
+__global__ void __launch_bounds__(kWindowLanes)
+dense_window_kernel(const SlabArgs sa, const DecodeArgs dec,
+                    const uint8_t* __restrict__ words, int width, int chunk,
+                    int8_t* paths) {
+  __shared__ int32_t warp_max[kWindowLanes / 32];
 
+  const int j = threadIdx.x;
+  const int lane0 = blockIdx.x * kWindowLanes;
+  const int lane = lane0 + j;
+  Lane l{0, 0, false, false};
+  if (lane < sa.lanes) l = lane_of(sa, lane);
+  if (!__syncthreads_or(l.live)) {  // every lane pads
+    report_path(paths, lane, sa.lanes, kPathNone);
+    return;
+  }
+
+  const int n = l.live ? min(max(l.count, 0), width) : 0;
   uint32_t st[Step::kState];
-  load_carry<Step>(sa, lane, st);
-  const int32_t len = lens_rel[lane];
-  const uint32_t ord = static_cast<uint32_t>(ord_rel[lane]);
-  for (int t = 0; t < width; ++t) {
-    const size_t row = static_cast<size_t>(t) * bs + lane;
-    fold_word<Step>(dec, st, words[row], row, t < len,
-                    ord + static_cast<uint32_t>(t) + 1u);
+  uint32_t base = 0;
+  if (l.live) base = load_slot<Step>(sa, lane, l, st);
+
+  // side rows are 4-byte, so the word bytes' rule implies theirs
+  const int n_lanes = min(kWindowLanes, sa.lanes - lane0);
+  bool bulk = aligned16(words) && (static_cast<int64_t>(sa.lanes) * NB) % 16 == 0 &&
+              (n_lanes * NB) % 16 == 0;
+#pragma unroll
+  for (int c = 0; c < Step::kCols; ++c) {
+    if (dec.kind[c] == kSide) bulk = bulk && aligned16(dec.side[c]);
   }
-  store_carry<Step>(sa, lane, st);
+  report_path(paths, lane, sa.lanes, bulk ? kPathStaged : kPathGlobal);
+  if (!bulk) {
+    if (l.live) {
+      fold_column<Step, NB>(dec, st, words, lane, sa.lanes, 0, n, base);
+      store_slot<Step>(sa, l, st, base);
+    }
+    return;
+  }
+
+  // the block's longest lane bounds the rows it stages
+  const int blk_len = ring_setup<kWindowLanes>(warp_max, n);
+  const Ring<Step, NB, kWindowLanes> ring(dec, chunk);
+  const int n_chunks = (blk_len + chunk - 1) / chunk;
+  // warp 0 stages rows [q * chunk, ...) of the block's lanes into stage s
+  auto issue = [&](int q, int s) {
+    const int r0 = q * chunk;
+    ring.issue(dec, words, s, r0, sa.lanes, lane0, min(chunk, blk_len - r0),
+               n_lanes, 0);
+  };
+  for (int q = 0; q < kStages && q < n_chunks; ++q) {
+    if (j < 32) issue(q, q);
+  }
+  for (int q = 0; q < n_chunks; ++q) {
+    const int s = q % kStages;
+    ring.wait(q);
+    const int r0 = q * chunk;
+    ring.fold(dec, st, s, r0, min(r0 + chunk, n), j, base);
+    __syncthreads();  // every thread is done with stage s
+    if (q + kStages < n_chunks && j < 32) issue(q + kStages, s);
+  }
+  if (l.live) store_slot<Step>(sa, l, st, base);
+}
+
+template <class Step, int NB>
+int launch_window_nb(const SlabArgs* sa, const DecodeArgs* dec,
+                     const uint8_t* words, int width, int8_t* paths,
+                     cudaStream_t stream) {
+  size_t smem = 0;
+  const int chunk = ring_chunk(dec, kWindowLanes, NB, width, &smem);
+  const dim3 grid((sa->lanes + kWindowLanes - 1) / kWindowLanes);
+  dense_window_kernel<Step, NB><<<grid, kWindowLanes, smem, stream>>>(
+      *sa, *dec, words, width, chunk, paths);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <class Step>
-int launch(const DecodeArgs* dec, const StateArgs* sa, const uint32_t* words,
-           const int32_t* lens_rel, const int32_t* ord_rel, int width, int bs,
-           cudaStream_t stream) {
+int launch_window(const SlabArgs* sa, const DecodeArgs* dec,
+                  const uint8_t* words, int nbytes, int width, int8_t* paths,
+                  cudaStream_t stream) {
   if (dec->n_cols != Step::kCols || sa->n_state != Step::kState) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((bs + kThreads - 1) / kThreads);
-  tile_scan_kernel<Step><<<grid, kThreads, 0, stream>>>(
-      *dec, *sa, words, lens_rel, ord_rel, width, bs);
-  return static_cast<int>(cudaGetLastError());
+  switch (nbytes) {
+    case 1: return launch_window_nb<Step, 1>(sa, dec, words, width, paths, stream);
+    case 2: return launch_window_nb<Step, 2>(sa, dec, words, width, paths, stream);
+    case 3: return launch_window_nb<Step, 3>(sa, dec, words, width, paths, stream);
+    case 4: return launch_window_nb<Step, 4>(sa, dec, words, width, paths, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <class Step, int NB>
@@ -400,12 +566,8 @@ int launch_list(const ListArgs* la, const DecodeArgs* dec, const StateArgs* sa,
     list_fold_flat_kernel<Step, NB><<<la->n_blk, kThreads, 0, stream>>>(*la, *dec, *sa);
     return static_cast<int>(cudaGetLastError());
   }
-  int n_side = 0;
-  for (int c = 0; c < dec->n_cols; ++c) n_side += dec->kind[c] == kSide;
-  const int per_row = kThreads * (la->nbytes + 4 * n_side);
-  int chunk = kStageBytes / per_row;
-  chunk = chunk < 1 ? 1 : (chunk > la->width ? la->width : chunk);
-  const size_t smem = static_cast<size_t>(kStages) * chunk * per_row;
+  size_t smem = 0;
+  const int chunk = ring_chunk(dec, kThreads, NB, la->width, &smem);
   list_fold_dense_kernel<Step, NB><<<la->n_blk, kThreads, smem, stream>>>(
       *la, *dec, *sa, chunk);
   return static_cast<int>(cudaGetLastError());
@@ -432,6 +594,7 @@ int launch_list(const ListArgs* la, const DecodeArgs* dec, const StateArgs* sa,
 using surge_fold::BankAccountStep;
 using surge_fold::CounterStep;
 using surge_fold::DecodeArgs;
+using surge_fold::SlabArgs;
 using surge_fold::StateArgs;
 using surge_k1::ListArgs;
 
@@ -444,16 +607,26 @@ int surge_tile_scan_shape(int step, int* n_cols, int* n_state) {
   return surge_fold::step_shape(step, n_cols, n_state);
 }
 
-int surge_tile_scan(int step, int width, int bs, const uint32_t* words,
-                    const int32_t* lens_rel, const int32_t* ord_rel,
-                    const DecodeArgs* dec, const StateArgs* sa, void* stream) {
-  if (bs <= 0 || width < 0) return static_cast<int>(cudaErrorInvalidValue);
+int surge_tile_scan_struct_size(int which) {
+  return surge_fold::struct_size(which);
+}
+
+// one dense refresh window: words u8 [width, lanes, nbytes]; paths, when
+// not null, int8 [lanes]: each lane's block's path (WindowPath)
+int surge_dense_window(int step, const SlabArgs* sa, const DecodeArgs* dec,
+                       const uint8_t* words, int nbytes, int width,
+                       int8_t* paths, void* stream) {
+  if (sa->lanes <= 0 || width < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (step) {
     case 0:
-      return surge_k1::launch<CounterStep>(dec, sa, words, lens_rel, ord_rel, width, bs, s);
+      return surge_k1::launch_window<CounterStep>(sa, dec, words, nbytes, width,
+                                                  paths, s);
     case 1:
-      return surge_k1::launch<BankAccountStep>(dec, sa, words, lens_rel, ord_rel, width, bs, s);
+      return surge_k1::launch_window<BankAccountStep>(sa, dec, words, nbytes,
+                                                      width, paths, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

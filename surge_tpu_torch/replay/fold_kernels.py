@@ -1,34 +1,37 @@
-"""The fold kernels K1 (the resident tile scan) and K2 (the ragged refresh
-fold): their wrappers and their plain torch versions.
-
-``tile_scan(carry, words, sides, lens_rel, ord_rel, *, spec, wire)`` folds one
-time-major tile: ``carry {field: [bs]}``, ``words [width, bs]`` (the u32 wire
-words as int32 bit patterns), ``sides {name: [width, bs]}``, ``lens_rel [bs]``
-(each lane's remaining length within the tile) and ``ord_rel [bs]`` (the
-lane's ordinal base shifted by the tile offset, so the derived ordinal of
-local step t is ``ord_rel + t + 1``). It computes what the Pallas kernel
-``surge_tpu/replay/pallas_fold.py:make_tile_scan`` computes.
-
-``ragged_fold(carry, words, sides, starts, lens, ord, *, width, spec, wire)``
-folds one refresh bucket from a FLAT event buffer: ``words [rows]``, ``sides
-{name: [rows]}``; lane ``b`` at step ``t < width`` reads row
-``min(starts[b] + t, rows - 1)``, valid while ``t < lens[b]``, with the derived
-ordinal ``ord[b] + t + 1``. It computes what the Pallas kernel
-``surge_tpu/replay/pallas_fold.py:make_ragged_fold`` computes (``starts`` are
-never negative there; a negative start clamps to row 0 here).
+"""The fold kernels K1 and K2: their wrappers and their plain torch versions.
 
 ``tile_fold_list(slab, words, sides, lens, ord, i0s, t_bases, *, width, bs,
 ...)`` folds a whole work list of the resident replay into the state slab in
-place, in one launch (K1's second entry): tile ``k`` folds events
+place, in one launch (K1's list fold): tile ``k`` folds events
 ``[t_bases[k], t_bases[k] + width)`` of lanes ``[i0s[k], i0s[k] + bs)``, in
 list order, from the dense tile buffers (``words u8 [k, width, bs, nbytes]``)
-or from the flat corpus (``words u8 [rows, nbytes]`` and ``starts``).
+or from the flat corpus (``words u8 [rows, nbytes]`` and ``starts``). Its
+tile-interior fold is :func:`tile_scan_reference`, what the Pallas kernel
+``surge_tpu/replay/pallas_fold.py:make_tile_scan`` computes.
 
-On CPU tensors each wrapper runs its plain version (:func:`tile_scan_reference`,
-:func:`tile_fold_list_reference`, :func:`ragged_fold_reference`); on CUDA
-tensors it launches the hand-written kernel (``surge_tpu_torch/csrc/tile_scan.cu``,
-``csrc/ragged_fold.cu``) or raises. ``LAUNCHES[name]`` counts kernel launches,
-and nothing else.
+The resident state plane runs each refresh window as ONE call, against the
+slab ``{field: [capacity + 1]}`` and its ordinals ``ords int32 [capacity +
+1]`` by slot, in place: what the reference's window program computes
+(``surge_tpu/replay/resident_state.py``: ``refresh``, ``_ragged_program``).
+A window's lanes travel as one int32 lane table (:func:`window_table`): each
+lane's slot (the scratch row ``capacity`` pads), its event count, its first
+flat row and, on a plan's first window, its admission aligned to lanes.
+
+- ``dense_window(slab, ords, table, words, sides, *, spec, wire)`` (K1's
+  dense window): ``words u8 [width, lanes, nbytes]``, ``sides {name: [width,
+  lanes]}``, time-major, as ``WireFormat.pack_window`` packs them.
+- ``ragged_window(slab, ords, table, words, sides, *, width, spec, wire)``
+  (K2): one bucket's events flat and lane-contiguous, ``words u8 [rows,
+  nbytes]``, ``sides {name: [rows]}``; lane ``b`` at step ``t < width`` reads
+  row ``clamp(start[b] + t, 0, rows - 1)``, valid while ``t < count[b]``,
+  what ``surge_tpu/replay/pallas_fold.py:make_ragged_fold`` computes.
+
+On CPU tensors each wrapper runs its plain version
+(:func:`tile_fold_list_reference`, :func:`dense_window_reference`,
+:func:`ragged_window_reference`); on CUDA tensors it launches the
+hand-written kernel (``surge_tpu_torch/csrc/tile_scan.cu``,
+``csrc/ragged_fold.cu``) or raises. ``LAUNCHES[name]`` counts kernel
+launches, and nothing else.
 """
 
 from __future__ import annotations
@@ -55,8 +58,19 @@ KERNEL_STEPS: dict[str, tuple[tuple[str, ...], tuple[str, ...]]] = {
 }
 
 #: kernel launches per wrapper (reset by the caller; never by this module)
-LAUNCHES: dict[str, int] = {"tile_scan": 0, "tile_fold_list": 0,
-                            "ragged_fold": 0}
+LAUNCHES: dict[str, int] = {"tile_fold_list": 0, "dense_window": 0,
+                            "ragged_window": 0}
+
+#: the rows of a window's lane table (``LaneRow`` in csrc/fold_common.cuh):
+#: slot, count, first flat row, then, on a plan's first window, the admit
+#: flag, the admitted ordinal and one row per state field of admitted values
+LANE_SLOT, LANE_COUNT, LANE_START, LANE_ADMIT, LANE_ADMIT_ORD, LANE_ADMIT_VAL = range(6)
+
+#: a window kernel block's path, as the launch reports it for each lane
+#: (``WindowPath`` in csrc/fold_common.cuh): nothing to read (every lane
+#: pads or folds no step), loads from device memory, staged through shared
+#: memory
+PATH_NONE, PATH_GLOBAL, PATH_STAGED = -1, 0, 1
 
 #: lanes per block of the list fold (``kThreads`` in csrc/fold_common.cuh):
 #: the granularity of its schedule
@@ -95,6 +109,20 @@ class _StateArgs(ctypes.Structure):
                 ("out", ctypes.c_void_p * _MAX_STATE)]
 
 
+class _SlabArgs(ctypes.Structure):
+    # mirrors struct SlabArgs in csrc/fold_common.cuh
+    _fields_ = [("n_state", ctypes.c_int32),
+                ("kind", ctypes.c_int32 * _MAX_STATE),
+                ("col", ctypes.c_void_p * _MAX_STATE),
+                ("ords", ctypes.c_void_p), ("table", ctypes.c_void_p),
+                ("capacity", ctypes.c_int32), ("lanes", ctypes.c_int32),
+                ("admit", ctypes.c_int32)]
+
+
+#: the mirrored structs, by the index the C struct_size functions take
+_STRUCTS = (_DecodeArgs, _StateArgs, _SlabArgs)
+
+
 class _ListArgs(ctypes.Structure):
     # mirrors struct ListArgs in csrc/tile_scan.cu
     _fields_ = [(name, ctypes.c_int32) for name in (
@@ -119,33 +147,6 @@ def tile_scan_reference(carry: Mapping[str, torch.Tensor], words: torch.Tensor,
                                    t < lens_rel, ord_rel, t)
         state = step(state, events)
     return state
-
-
-def tile_scan(carry: Mapping[str, torch.Tensor], words: torch.Tensor,
-              sides: Mapping[str, torch.Tensor], lens_rel: torch.Tensor,
-              ord_rel: torch.Tensor, *, spec: ReplaySpec,
-              wire: WireFormat) -> dict[str, torch.Tensor]:
-    """Fold one tile: the plain version for CPU tensors, the kernel for CUDA
-    tensors (see the module docstring)."""
-    if words.device.type == "cpu":
-        return tile_scan_reference(carry, words, sides, lens_rel, ord_rel,
-                                   spec=spec, wire=wire)
-    if words.device.type != "cuda":
-        raise ValueError(f"tile_scan runs on cpu or cuda tensors, got "
-                         f"{words.device}")
-    step_id, layout = _decode_args(spec.kernel_step, spec.registry, wire)
-    width, bs = _check_tile(carry, words, sides, lens_rel, ord_rel, spec, wire)
-    out, dec, sa = _kernel_args(layout, carry, sides, spec)
-    if bs == 0:
-        return out
-    stream = torch.cuda.current_stream(words.device).cuda_stream
-    err = _library("tile_scan").surge_tile_scan(
-        step_id, width, bs, words.data_ptr(), lens_rel.data_ptr(),
-        ord_rel.data_ptr(), ctypes.byref(dec), ctypes.byref(sa), stream)
-    if err != 0:
-        raise RuntimeError(f"tile_scan kernel launch failed: cudaError_t {err}")
-    LAUNCHES["tile_scan"] += 1
-    return out
 
 
 def _slab_index(starts: torch.Tensor, t_base: int, width: int, rows: int
@@ -306,42 +307,215 @@ def ragged_fold_reference(carry: Mapping[str, torch.Tensor], words: torch.Tensor
     return state
 
 
-def ragged_fold(carry: Mapping[str, torch.Tensor], words: torch.Tensor,
-                sides: Mapping[str, torch.Tensor], starts: torch.Tensor,
-                lens: torch.Tensor, ord: torch.Tensor, *, width: int,
-                spec: ReplaySpec, wire: WireFormat) -> dict[str, torch.Tensor]:
-    """Fold one ragged refresh bucket: the plain version for CPU tensors, the
-    kernel for CUDA tensors (see the module docstring)."""
+def window_table(slots: np.ndarray, counts: np.ndarray,
+                 starts: np.ndarray | None = None, admission=None,
+                 fields: tuple[str, ...] = ()) -> np.ndarray:
+    """One refresh window's lane table, int32 ``[rows, lanes]`` (one upload):
+    ``slots`` (the scratch row ``capacity`` pads), ``counts`` (events the
+    window folds), ``starts`` (first flat row, ragged windows; zeros else)
+    and, on a plan's first window, ``admission = (flag, ord, values)``: the
+    lanes that start from an admitted row, their ordinals and
+    ``values {field: [lanes]}``, stored in the order of ``fields`` as each
+    value's 32-bit pattern (a bool as 0 or 1)."""
+    lanes = len(slots)
+    n_rows = LANE_ADMIT if admission is None else LANE_ADMIT_VAL + len(fields)
+    table = np.zeros((n_rows, lanes), dtype=np.int32)
+    table[LANE_SLOT] = slots
+    table[LANE_COUNT] = counts
+    if starts is not None:
+        table[LANE_START] = starts
+    if admission is not None:
+        flag, ordv, values = admission
+        table[LANE_ADMIT] = flag
+        table[LANE_ADMIT_ORD] = ordv
+        for i, name in enumerate(fields):
+            v = np.asarray(values[name])
+            if v.dtype == np.float32:
+                v = v.view(np.int32)
+            elif v.dtype.itemsize > 4 or v.dtype.kind == "f":
+                raise ValueError(f"admitted field {name!r}: a lane table holds "
+                                 f"32-bit values, not {v.dtype}")
+            table[LANE_ADMIT_VAL + i] = v
+    return table
+
+
+def _from_row(row: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A lane-table row of 32-bit patterns as a column of ``dtype``."""
+    if dtype == torch.float32:
+        return row.view(torch.float32)
+    if dtype == torch.bool:
+        return row != 0
+    return row.to(dtype)
+
+
+def _plain_window(slab: Mapping[str, torch.Tensor], ords: torch.Tensor,
+                  table: torch.Tensor, fold, spec: ReplaySpec) -> None:
+    """The reference's window program in eager torch, in place: admission
+    ``index_copy_`` (aligned to lanes: a lane that is not admitted writes the
+    scratch row), the lanes' carry and ordinal ``index_select``, ``fold(carry,
+    ord_lane) -> carry``, ``index_copy_`` back and the ordinals'
+    ``index_add_`` (padding lanes all write the scratch row)."""
+    capacity = ords.shape[0] - 1
+    lanes = table[LANE_SLOT].to(torch.int64)
+    if table.shape[0] > LANE_ADMIT:
+        idx = torch.where(table[LANE_ADMIT] != 0, lanes, capacity)
+        for i, f in enumerate(spec.registry.state.fields):
+            v = slab[f.name]
+            v.index_copy_(0, idx, _from_row(table[LANE_ADMIT_VAL + i], v.dtype))
+        ords.index_copy_(0, idx, table[LANE_ADMIT_ORD])
+    carry = {k: v.index_select(0, lanes) for k, v in slab.items()}
+    out = fold(carry, ords.index_select(0, lanes))
+    for k, v in slab.items():
+        v.index_copy_(0, lanes, out[k])
+    ords.index_add_(0, lanes, table[LANE_COUNT])
+
+
+def dense_window_reference(slab: Mapping[str, torch.Tensor], ords: torch.Tensor,
+                           table: torch.Tensor, words: torch.Tensor,
+                           sides: Mapping[str, torch.Tensor], *,
+                           spec: ReplaySpec, wire: WireFormat,
+                           fold=None) -> None:
+    """The plain version of K1's dense window: :func:`_plain_window` around
+    the tile fold. ``fold(carry, words, sides, ord_lane) -> carry`` is the
+    tile fold; by default it is :func:`tile_scan_reference` of the expanded
+    words with ``lens_rel = counts`` (a slot past the count packs to the pad
+    code, so it folds what the reference's decode and scan fold), what the
+    kernel computes; the plane's plain backend passes its own decode and
+    scan."""
+    width, lanes = words.shape[0], words.shape[1]
+    counts = table[LANE_COUNT]
+
+    def tile(carry, ord_lane):
+        if fold is not None:
+            return fold(carry, words, sides, ord_lane)
+        flat = wire.expand_flat(words.reshape(width * lanes, wire.nbytes))
+        return tile_scan_reference(carry, flat.reshape(width, lanes), sides,
+                                   counts, ord_lane, spec=spec, wire=wire)
+
+    _plain_window(slab, ords, table, tile, spec)
+
+
+def ragged_window_reference(slab: Mapping[str, torch.Tensor], ords: torch.Tensor,
+                            table: torch.Tensor, words: torch.Tensor,
+                            sides: Mapping[str, torch.Tensor], *, width: int,
+                            spec: ReplaySpec, wire: WireFormat) -> None:
+    """The plain version of K2's ragged window: :func:`_plain_window` around
+    :func:`ragged_fold_reference` of the expanded flat words."""
+    flat = wire.expand_flat(words)
+
+    def fold(carry, ord_lane):
+        return ragged_fold_reference(carry, flat, sides, table[LANE_START],
+                                     table[LANE_COUNT], ord_lane, width=width,
+                                     spec=spec, wire=wire)
+
+    _plain_window(slab, ords, table, fold, spec)
+
+
+def dense_window(slab: Mapping[str, torch.Tensor], ords: torch.Tensor,
+                 table: torch.Tensor, words: torch.Tensor,
+                 sides: Mapping[str, torch.Tensor], *, spec: ReplaySpec,
+                 wire: WireFormat, paths: torch.Tensor | None = None) -> None:
+    """Run one dense refresh window in place: the plain version for CPU
+    tensors, one K1 window launch for CUDA tensors (see the module
+    docstring). ``paths`` (the kernel only; int8 ``[lanes]``) receives each
+    lane's block's path: ``PATH_STAGED``, ``PATH_GLOBAL`` or ``PATH_NONE``."""
     if words.device.type == "cpu":
-        return ragged_fold_reference(carry, words, sides, starts, lens, ord,
-                                     width=width, spec=spec, wire=wire)
+        _no_paths(paths, "dense_window")
+        dense_window_reference(slab, ords, table, words, sides, spec=spec,
+                               wire=wire)
+        return
     if words.device.type != "cuda":
-        raise ValueError(f"ragged_fold runs on cpu or cuda tensors, got "
+        raise ValueError(f"dense_window runs on cpu or cuda tensors, got "
                          f"{words.device}")
     step_id, layout = _decode_args(spec.kernel_step, spec.registry, wire)
-    rows, bs = _check_ragged(carry, words, sides, starts, lens, ord, width,
-                             spec, wire)
-    out, dec, sa = _kernel_args(layout, carry, sides, spec)
-    if bs == 0:
-        return out
+    lanes = _check_window(slab, ords, table, spec, words.device)
+    if words.dim() != 3:
+        raise ValueError(f"words must be uint8 [width, lanes, nbytes], got "
+                         f"{tuple(words.shape)}")
+    width = words.shape[0]
+    _need(words, "words", (width, lanes, wire.nbytes), torch.uint8, words.device)
+    _check_sides(sides, (width, lanes), wire, words.device)
+    dec = _decode_with_sides(layout, sides, spec)
+    sa = _slab_args(slab, ords, table, spec)
     stream = torch.cuda.current_stream(words.device).cuda_stream
-    err = _library("ragged_fold").surge_ragged_fold(
-        step_id, width, rows, bs, words.data_ptr(), starts.data_ptr(),
-        lens.data_ptr(), ord.data_ptr(), ctypes.byref(dec), ctypes.byref(sa),
+    err = _library("tile_scan").surge_dense_window(
+        step_id, ctypes.byref(sa), ctypes.byref(dec), words.data_ptr(),
+        wire.nbytes, width, _paths_ptr(paths, lanes, words.device), stream)
+    if err != 0:
+        raise RuntimeError(f"dense_window kernel launch failed: cudaError_t {err}")
+    LAUNCHES["dense_window"] += 1
+
+
+def ragged_window(slab: Mapping[str, torch.Tensor], ords: torch.Tensor,
+                  table: torch.Tensor, words: torch.Tensor,
+                  sides: Mapping[str, torch.Tensor], *, width: int,
+                  spec: ReplaySpec, wire: WireFormat,
+                  paths: torch.Tensor | None = None) -> None:
+    """Run one ragged refresh window in place: the plain version for CPU
+    tensors, one K2 launch for CUDA tensors (see the module docstring).
+    ``paths`` as for :func:`dense_window`."""
+    if words.device.type == "cpu":
+        _no_paths(paths, "ragged_window")
+        ragged_window_reference(slab, ords, table, words, sides, width=width,
+                                spec=spec, wire=wire)
+        return
+    if words.device.type != "cuda":
+        raise ValueError(f"ragged_window runs on cpu or cuda tensors, got "
+                         f"{words.device}")
+    step_id, layout = _decode_args(spec.kernel_step, spec.registry, wire)
+    lanes = _check_window(slab, ords, table, spec, words.device)
+    if int(width) < 0:
+        raise ValueError(f"width must be >= 0, got {width}")
+    if words.dim() != 2 or words.shape[0] < 1:
+        raise ValueError(f"words must be uint8 [rows >= 1, nbytes], got "
+                         f"{tuple(words.shape)}")
+    rows = words.shape[0]
+    _need(words, "words", (rows, wire.nbytes), torch.uint8, words.device)
+    _check_sides(sides, (rows,), wire, words.device)
+    if any(t.data_ptr() % 16 for t in (words, *sides.values())):
+        raise ValueError("ragged_window: words and side columns must start on "
+                         "16 bytes")
+    dec = _decode_with_sides(layout, sides, spec)
+    sa = _slab_args(slab, ords, table, spec)
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    err = _library("ragged_fold").surge_ragged_window(
+        step_id, ctypes.byref(sa), ctypes.byref(dec), words.data_ptr(),
+        wire.nbytes, int(width), rows, _paths_ptr(paths, lanes, words.device),
         stream)
     if err != 0:
-        raise RuntimeError(f"ragged_fold kernel launch failed: cudaError_t {err}")
-    LAUNCHES["ragged_fold"] += 1
-    return out
+        raise RuntimeError(f"ragged_window kernel launch failed: cudaError_t {err}")
+    LAUNCHES["ragged_window"] += 1
 
 
-def _kernel_args(layout: "_DecodeArgs", carry: Mapping[str, torch.Tensor],
-                 sides: Mapping[str, torch.Tensor], spec: ReplaySpec):
-    """The output carry (allocated here) and the kernel's argument structs."""
-    out = {f.name: torch.empty_like(carry[f.name])
-           for f in spec.registry.state.fields}
-    return (out, _decode_with_sides(layout, sides, spec),
-            _state_args(carry, out, spec))
+def _no_paths(paths: torch.Tensor | None, what: str) -> None:
+    if paths is not None:
+        raise ValueError(f"{what}: paths reports the kernel's blocks; the "
+                         f"plain version that CPU tensors run has none")
+
+
+def _paths_ptr(paths: torch.Tensor | None, lanes: int, dev: torch.device) -> int:
+    """The kernel's per-lane path buffer (int8 ``[lanes]``), or null."""
+    if paths is None:
+        return 0
+    _need(paths, "paths", (lanes,), torch.int8, dev)
+    return paths.data_ptr()
+
+
+def _slab_args(slab: Mapping[str, torch.Tensor], ords: torch.Tensor,
+               table: torch.Tensor, spec: ReplaySpec) -> "_SlabArgs":
+    """The slab, its ordinals and the lane table, for a window kernel."""
+    fields = spec.registry.state.fields
+    sa = _SlabArgs()
+    sa.n_state = len(fields)
+    for i, f in enumerate(fields):
+        sa.kind[i] = _STATE_KINDS[np.dtype(f.dtype)]
+        sa.col[i] = slab[f.name].data_ptr()
+    sa.ords = ords.data_ptr()
+    sa.table = table.data_ptr()
+    sa.capacity = ords.shape[0] - 1
+    sa.lanes = table.shape[1]
+    sa.admit = int(table.shape[0] > LANE_ADMIT)
+    return sa
 
 
 def _decode_with_sides(layout: "_DecodeArgs", sides: Mapping[str, torch.Tensor],
@@ -456,10 +630,7 @@ def _need(t: torch.Tensor, what: str, shape: tuple, dtype: torch.dtype,
         raise ValueError(f"{what} must be contiguous")
 
 
-def _check_carry_and_sides(carry, sides, bs: int, side_shape: tuple, spec,
-                           wire, dev) -> None:
-    for f in spec.registry.state.fields:
-        _need(carry[f.name], f"carry[{f.name!r}]", (bs,), torch_dtype(f.dtype), dev)
+def _check_sides(sides, side_shape: tuple, wire, dev) -> None:
     if set(sides) != {f.name for f in wire.side_fields}:
         raise ValueError(f"sides {sorted(sides)} != the wire's side columns "
                          f"{sorted(f.name for f in wire.side_fields)}")
@@ -468,20 +639,11 @@ def _check_carry_and_sides(carry, sides, bs: int, side_shape: tuple, spec,
               torch_dtype(f.dtype), dev)
 
 
-def _check_tile(carry, words, sides, lens_rel, ord_rel, spec, wire
-                ) -> tuple[int, int]:
-    """Device, dtype, shape and contiguity of every K1 input; returns
-    ``(width, bs)``."""
-    dev = words.device
-    if words.dtype != torch.int32 or words.dim() != 2:
-        raise ValueError(f"words must be int32 [width, bs], got {words.dtype} "
-                         f"{tuple(words.shape)}")
-    width, bs = words.shape
-    _need(words, "words", (width, bs), torch.int32, dev)
-    _need(lens_rel, "lens_rel", (bs,), torch.int32, dev)
-    _need(ord_rel, "ord_rel", (bs,), torch.int32, dev)
-    _check_carry_and_sides(carry, sides, bs, (width, bs), spec, wire, dev)
-    return width, bs
+def _check_carry_and_sides(carry, sides, bs: int, side_shape: tuple, spec,
+                           wire, dev) -> None:
+    for f in spec.registry.state.fields:
+        _need(carry[f.name], f"carry[{f.name!r}]", (bs,), torch_dtype(f.dtype), dev)
+    _check_sides(sides, side_shape, wire, dev)
 
 
 def _check_list(slab, words, sides, lens, ord, i0s, t_bases, starts, width,
@@ -516,26 +678,27 @@ def _check_list(slab, words, sides, lens, ord, i0s, t_bases, starts, width,
     return b_pad, k
 
 
-def _check_ragged(carry, words, sides, starts, lens, ord, width, spec, wire
-                  ) -> tuple[int, int]:
-    """Device, dtype, shape and contiguity of every K2 input; returns
-    ``(rows, bs)``."""
-    dev = words.device
-    if words.dtype != torch.int32 or words.dim() != 1 or words.shape[0] < 1:
-        raise ValueError(f"words must be int32 [rows] with rows >= 1, got "
-                         f"{words.dtype} {tuple(words.shape)}")
-    if int(width) < 0:
-        raise ValueError(f"width must be >= 0, got {width}")
-    rows = words.shape[0]
-    if starts.dim() != 1:
-        raise ValueError(f"starts must be int32 [bs], got {tuple(starts.shape)}")
-    bs = starts.shape[0]
-    _need(words, "words", (rows,), torch.int32, dev)
-    _need(starts, "starts", (bs,), torch.int32, dev)
-    _need(lens, "lens", (bs,), torch.int32, dev)
-    _need(ord, "ord", (bs,), torch.int32, dev)
-    _check_carry_and_sides(carry, sides, bs, (rows,), spec, wire, dev)
-    return rows, bs
+def _check_window(slab, ords, table, spec, dev) -> int:
+    """Device, dtype, shape and contiguity of the slab, its ordinals and a
+    window's lane table; returns the window's lanes."""
+    if ords.dim() != 1 or ords.shape[0] < 1:
+        raise ValueError(f"ords must be int32 [capacity + 1], got "
+                         f"{tuple(ords.shape)}")
+    _need(ords, "ords", tuple(ords.shape), torch.int32, dev)
+    for f in spec.registry.state.fields:
+        _need(slab[f.name], f"slab[{f.name!r}]", tuple(ords.shape),
+              torch_dtype(f.dtype), dev)
+    n_state = len(spec.registry.state.fields)
+    if table.dim() != 2 or table.shape[0] not in (LANE_ADMIT,
+                                                  LANE_ADMIT_VAL + n_state):
+        raise ValueError(f"table must be int32 [{LANE_ADMIT} or "
+                         f"{LANE_ADMIT_VAL + n_state}, lanes], got "
+                         f"{tuple(table.shape)}")
+    lanes = table.shape[1]
+    if lanes < 1:
+        raise ValueError("a window needs at least one lane")
+    _need(table, "table", tuple(table.shape), torch.int32, dev)
+    return lanes
 
 
 @functools.cache
@@ -546,12 +709,14 @@ def _library(name: str) -> ctypes.CDLL:
     from surge_tpu_torch._build import library
 
     lib = ctypes.CDLL(str(library(name)))
+    # step, slab and lane table, decode, words, nbytes, width
+    window = [ctypes.c_int, ctypes.POINTER(_SlabArgs), ctypes.POINTER(_DecodeArgs),
+              ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     if name == "tile_scan":
-        lib.surge_tile_scan.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(_DecodeArgs),
-            ctypes.POINTER(_StateArgs), ctypes.c_void_p]
-        lib.surge_tile_scan.restype = ctypes.c_int
+        # + paths, stream
+        lib.surge_dense_window.argtypes = window + [ctypes.c_void_p,
+                                                    ctypes.c_void_p]
+        lib.surge_dense_window.restype = ctypes.c_int
         lib.surge_tile_fold_list.argtypes = [
             ctypes.c_int, ctypes.POINTER(_ListArgs), ctypes.POINTER(_DecodeArgs),
             ctypes.POINTER(_StateArgs), ctypes.c_void_p]
@@ -561,14 +726,20 @@ def _library(name: str) -> ctypes.CDLL:
             raise RuntimeError("struct ListArgs in csrc/tile_scan.cu and "
                                "_ListArgs differ in size")
     elif name == "ragged_fold":
-        lib.surge_ragged_fold.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.POINTER(_DecodeArgs), ctypes.POINTER(_StateArgs),
-            ctypes.c_void_p]
-        lib.surge_ragged_fold.restype = ctypes.c_int
+        # + rows, paths, stream
+        lib.surge_ragged_window.argtypes = window + [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        lib.surge_ragged_window.restype = ctypes.c_int
     else:
         raise ValueError(f"no kernel library {name!r}")
+    sizes = getattr(lib, f"surge_{name}_struct_size")
+    sizes.argtypes = [ctypes.c_int]
+    sizes.restype = ctypes.c_int
+    for which, struct in enumerate(_STRUCTS):
+        if sizes(which) != ctypes.sizeof(struct):
+            raise RuntimeError(f"csrc/fold_common.cuh and {struct.__name__} "
+                               f"differ in size ({sizes(which)} != "
+                               f"{ctypes.sizeof(struct)} bytes)")
     shape = getattr(lib, f"surge_{name}_shape")
     shape.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                       ctypes.POINTER(ctypes.c_int)]

@@ -11,18 +11,19 @@ reads are answered by batched device gathers.
   every padded admission and scatter index; it is never gathered. A host-side
   directory maps aggregate id → slot.
 - **Refresh round.** Each committed batch is wire-packed on the host
-  (surge_tpu_torch.codec.wire) and folded window by window: admission scatter
-  → gather lane carries → fold → scatter back → ordinal add. Bucketed plans
-  fold through kernel K2 (``fold_kernels.ragged_fold``) when the resolved tile
-  backend is ``pallas`` (``auto`` on CUDA), window plans through K1
-  (``fold_kernels.tile_scan``) or, under an explicit ``tile-backend = xla``,
-  the plain torch scan.
+  (surge_tpu_torch.codec.wire) and folded window by window, each window ONE
+  call that runs the reference's window program against the slab by slot:
+  admission → lane carries → fold → write back → ordinal add. Bucketed plans
+  fold through kernel K2 (``fold_kernels.ragged_window``) when the resolved
+  tile backend is ``pallas`` (``auto`` on CUDA), window plans through K1's
+  dense window (``fold_kernels.dense_window``) or, under an explicit
+  ``tile-backend = xla``, the plain window around the plain torch scan.
 - **In place, atomic per window.** Torch updates the slab in place (the
   reference's donated arm; ``surge.replay.donate-refresh = false`` folds into
   a copy published at the group's commit). One plane lock is held around the
-  enqueue of a whole window's ops and around the enqueue of every gather, so a
-  gather never lands between a window's ops: it reads each row either before
-  or after the window, never torn, and always beside its own ordinal.
+  enqueue of a window's call and around the enqueue of every gather, so a
+  gather never lands inside a window: it reads each row either before or
+  after the window, never torn, and always beside its own ordinal.
 - **Admission / eviction, reads, rebalance** follow the reference exactly:
   least-recently-touched rows spill to a host dict at their exact fold point;
   reads coalesce on a gather lane and fall back to the host store when not
@@ -1095,29 +1096,44 @@ class ResidentStatePlane(Controllable):
             return ({k: v.clone() for k, v in self._slab.items()},
                     self._ords.clone())
 
+    def _lane_admission(self, sel: np.ndarray, lanes_b: int,
+                        slot_of: np.ndarray, admit_lane: np.ndarray,
+                        admit_ord_of: np.ndarray,
+                        admit_val_of: Dict[str, np.ndarray]):
+        """One plan's lanes and admission, aligned to lanes and padded to its
+        ``lanes_b`` bucket: ``(lane_slots, (flag, ord, values))``. Padding
+        lanes target the scratch row and admit nothing. The reference
+        scatters the plan's admitted slots positionally and then gathers the
+        lanes' slots; a lane-aligned admission computes the same because
+        every admitted slot is a lane of its plan (``sel`` picks both)."""
+        nb = len(sel)
+        lane_slots = np.full((lanes_b,), self.capacity, dtype=np.int32)
+        lane_slots[:nb] = slot_of[sel]
+        flag = np.zeros((lanes_b,), dtype=bool)
+        flag[:nb] = admit_lane[sel]
+        ordv = np.zeros((lanes_b,), dtype=np.int32)
+        ordv[:nb] = admit_ord_of[sel]
+        init = self.spec.init_state_tree()
+        values = {}
+        for k, col in admit_val_of.items():
+            vals = np.full((lanes_b,), init[k], dtype=col.dtype)
+            vals[:nb] = col[sel]
+            values[k] = vals
+        return lane_slots, (flag, ordv, values)
+
     async def _dispatch_plan(self, loop, plan, slab, ords,
                              slot_of: np.ndarray, admit_lane: np.ndarray,
                              admit_ord_of: np.ndarray,
                              admit_val_of: Dict[str, np.ndarray]) -> None:
         """Fold one refresh plan's chained windows into ``slab``/``ords`` in
-        place, one executor call per window. The plan's admission and lane
-        arrays pad to its ``lanes_b`` bucket (padding targets the scratch
-        row); only the first window admits."""
+        place, one executor call per window. Each window travels as one lane
+        table (``fold_kernels.window_table``); only the first window
+        admits."""
         mode, sel, lanes_b, width, payload = plan
         nb = len(sel)
-        adm = sel[admit_lane[sel]]
-        admit_idx = np.full((lanes_b,), self.capacity, dtype=np.int64)
-        admit_idx[:len(adm)] = slot_of[adm]
-        admit_ord = np.zeros((lanes_b,), dtype=np.int32)
-        admit_ord[:len(adm)] = admit_ord_of[adm]
-        init = self.spec.init_state_tree()
-        admit_vals = {}
-        for k, col in admit_val_of.items():
-            vals = np.full((lanes_b,), init[k], dtype=col.dtype)
-            vals[:len(adm)] = col[adm]
-            admit_vals[k] = vals
-        lane_slots = np.full((lanes_b,), self.capacity, dtype=np.int64)
-        lane_slots[:nb] = slot_of[sel]
+        lane_slots, admission = self._lane_admission(
+            sel, lanes_b, slot_of, admit_lane, admit_ord_of, admit_val_of)
+        fields = tuple(f.name for f in self._fields)
 
         if mode == "rag":
             packed_flat, sides_flat, starts, wins = payload
@@ -1134,12 +1150,15 @@ class ResidentStatePlane(Controllable):
         shared: Dict[str, Any] = {}  # the plan's device inputs (executor only)
         occupied = 0
         for w, win in enumerate(wins):
-            admission = (admit_idx, admit_vals, admit_ord) if w == 0 else None
+            counts = win[-1]
+            table = fold_kernels.window_table(
+                lane_slots, counts,
+                (starts + win[0]).astype(np.int32) if mode == "rag" else None,
+                admission if w == 0 else None, fields)
             d0 = time.perf_counter()
             await loop.run_in_executor(
                 None, self._run_window, mode, shared, slab, ords, width,
-                lane_slots, admission, win, payload)
-            counts = win[-1]
+                table, win, payload)
             acc["windows"] += 1
             acc["dispatched"] += lanes_b * width
             acc["occupied"] += int(counts.sum())
@@ -1151,68 +1170,37 @@ class ResidentStatePlane(Controllable):
             "occupied": occupied, "ragged": mode == "rag" or None})
 
     def _run_window(self, mode: str, shared: Dict[str, Any], slab, ords,
-                    width: int, lane_slots: np.ndarray, admission, win,
-                    payload) -> None:
-        """Executor half of one window: upload its inputs, then enqueue its
-        ops under the plane lock — admission scatter → gather lane carries →
-        fold (K2, K1 or the plain scan) → scatter back → ordinal add."""
+                    width: int, table: np.ndarray, win, payload) -> None:
+        """Executor half of one window: upload its inputs (the lane table,
+        and the wire bytes once per plan or per window), then make ONE
+        window call under the plane lock — K2's ragged window, K1's dense
+        window, or under ``tile-backend = xla`` the plain window around the
+        plain decode and scan."""
         up = self._upload
-        if not shared:
-            shared["lanes"] = up(lane_slots)
-            if mode == "rag":
-                packed_flat, sides_flat, starts, _ = payload
-                shared["words"] = self._wire.expand_flat(up(packed_flat))
-                shared["sides"] = {n: up(v) for n, v in sides_flat.items()}
-        lanes = shared["lanes"]
-        adm = None
-        if admission is not None:
-            admit_idx, admit_vals, admit_ord = admission
-            adm = (up(admit_idx), {k: up(v) for k, v in admit_vals.items()},
-                   up(admit_ord))
         spec, wire = self.spec, self._wire
         if mode == "rag":
-            t_base, counts = win
-            counts_d = up(counts)
-            starts_d = up((payload[2] + t_base).astype(np.int32))
-
-            def fold(carry, ord_lane):
-                return fold_kernels.ragged_fold(
-                    carry, shared["words"], shared["sides"], starts_d,
-                    counts_d, ord_lane, width=width, spec=spec, wire=wire)
+            if not shared:
+                packed_flat, sides_flat, _, _ = payload
+                shared["words"] = up(packed_flat)
+                shared["sides"] = {n: up(v) for n, v in sides_flat.items()}
+            words, sides = shared["words"], shared["sides"]
         else:
-            packed, side, counts = win
-            counts_d = up(counts)
-            packed_d = up(packed)
-            side_d = {n: up(v) for n, v in side.items()}
-            if self._backend == "pallas":
-                lanes_b = lane_slots.shape[0]
-                words = wire.expand_flat(
-                    packed_d.reshape(width * lanes_b, wire.nbytes)
-                ).reshape(width, lanes_b)
-
-                def fold(carry, ord_lane):
-                    # padded slots decode to the pad code either way, so
-                    # lens_rel = counts folds what the plain decode folds
-                    return fold_kernels.tile_scan(
-                        carry, words, side_d, counts_d, ord_lane,
-                        spec=spec, wire=wire)
-            else:
-                def fold(carry, ord_lane):
-                    return self._fold(carry, wire.decode(packed_d, side_d,
-                                                         ord_lane))
+            packed, side, _ = win
+            words = up(packed)
+            sides = {n: up(v) for n, v in side.items()}
+        table_d = up(table)
         with self._dev_lock:
-            if adm is not None:
-                idx, vals, o = adm
-                for k, v in slab.items():
-                    v.index_copy_(0, idx, vals[k])
-                ords.index_copy_(0, idx, o)
-            carry = {k: v.index_select(0, lanes) for k, v in slab.items()}
-            out = fold(carry, ords.index_select(0, lanes))
-            for k, v in slab.items():
-                v.index_copy_(0, lanes, out[k])
-            # accumulates like the reference's .at[].add (padding lanes all
-            # add 0 into the scratch row)
-            ords.index_add_(0, lanes, counts_d)
+            if mode == "rag":
+                fold_kernels.ragged_window(slab, ords, table_d, words, sides,
+                                           width=width, spec=spec, wire=wire)
+            elif self._backend == "pallas":
+                fold_kernels.dense_window(slab, ords, table_d, words, sides,
+                                          spec=spec, wire=wire)
+            else:
+                fold_kernels.dense_window_reference(
+                    slab, ords, table_d, words, sides, spec=spec, wire=wire,
+                    fold=lambda carry, w, sd, o: self._fold(
+                        carry, wire.decode(w, sd, o)))
 
     # -- eviction and pulls -------------------------------------------------------------
 

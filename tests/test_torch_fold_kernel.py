@@ -1,7 +1,10 @@
-"""K1's module (surge_tpu_torch.replay.fold_kernels): the wrapper on CPU tensors
-(its plain torch version) against the reference's Pallas kernel
-``make_tile_scan`` run in interpret mode, byte for byte; the wrapper's argument
-checks; and, on a CUDA card only, the kernel against its plain version."""
+"""K1's tile fold (surge_tpu_torch.replay.fold_kernels): its plain torch
+version ``tile_scan_reference``, the tile-interior fold of the list fold's and
+the dense refresh window's plain versions, against the reference's Pallas
+kernel ``make_tile_scan`` run in interpret mode, byte for byte; and the decode
+arguments every kernel takes. The dense window's wrapper and kernel are held
+in tests/test_torch_refresh_window.py, the list fold in
+tests/test_torch_tile_list.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -68,8 +71,8 @@ def test_plain_tile_scan_matches_pallas_interpret(case, bs):
     wire, jwire = WireFormat(spec.registry, derived), JWire(jspec.registry, derived)
     width = 16
     carry, words, sides, lens, ordr = _inputs(spec, wire, width, bs, seed=bs)
-    got = fold_kernels.tile_scan(*_torch_args(carry, words, sides, lens, ordr),
-                                 spec=spec, wire=wire)
+    got = fold_kernels.tile_scan_reference(
+        *_torch_args(carry, words, sides, lens, ordr), spec=spec, wire=wire)
     want = make_tile_scan(jspec, jwire, width, bs, 1)(
         {k: jnp.asarray(v) for k, v in carry.items()}, jnp.asarray(words),
         {k: jnp.asarray(v) for k, v in sides.items()}, jnp.asarray(lens),
@@ -81,15 +84,6 @@ def test_plain_tile_scan_matches_pallas_interpret(case, bs):
     # the caller's carry is not written
     assert all(np.array_equal(a, carry[k]) for k, a in
                _torch_args(carry, words, sides, lens, ordr)[0].items())
-
-
-def test_cpu_tensors_never_count_a_launch():
-    spec = counter.make_replay_spec()
-    wire = WireFormat(spec.registry, {"sequence_number": "ordinal"})
-    before = fold_kernels.LAUNCHES["tile_scan"]
-    fold_kernels.tile_scan(*_torch_args(*_inputs(spec, wire, 4, 8, 0)),
-                           spec=spec, wire=wire)
-    assert fold_kernels.LAUNCHES["tile_scan"] == before
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -120,35 +114,3 @@ def test_decode_args_refuse_what_the_kernel_cannot_fold():
     reg.register_state(bank_account.EncodedAccountState)
     with pytest.raises(ValueError, match="side column 'balance'"):
         fold_kernels._decode_args("bank_account", reg, WireFormat(reg, {}))
-
-
-def test_tile_scan_refuses_other_devices():
-    spec = counter.make_replay_spec()
-    wire = WireFormat(spec.registry, {})
-    args = _torch_args(*_inputs(spec, wire, 4, 8, 0), device="meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        fold_kernels.tile_scan(*args, spec=spec, wire=wire)
-
-
-@pytest.fixture
-def cuda_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the tile-scan kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("bs", [8192, 1000])
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_kernel_matches_plain_version_on_the_card(cuda_card, case, bs):
-    mk, _, derived = CASES[case]
-    spec = mk()
-    wire = WireFormat(spec.registry, derived)
-    args = _torch_args(*_inputs(spec, wire, 64, bs, seed=7), device=cuda_card)
-    before = fold_kernels.LAUNCHES["tile_scan"]
-    got = fold_kernels.tile_scan(*args, spec=spec, wire=wire)
-    want = fold_kernels.tile_scan_reference(*args, spec=spec, wire=wire)
-    torch.cuda.synchronize()
-    assert fold_kernels.LAUNCHES["tile_scan"] == before + 1
-    for k in want:
-        assert got[k].cpu().numpy().tobytes() == want[k].cpu().numpy().tobytes(), k

@@ -1,9 +1,9 @@
-"""K2's module (surge_tpu_torch.replay.fold_kernels.ragged_fold): the wrapper on
-CPU tensors (its plain torch version) against the reference's Pallas kernel
-``make_ragged_fold`` run in interpret mode, byte for byte, with clipped tail
-reads, empty and over-long lanes and shifted (chained-window) starts; the
-wrapper's argument checks; and, on a CUDA card only, the kernel against its
-plain version."""
+"""K2's fold (surge_tpu_torch.replay.fold_kernels.ragged_fold_reference, the
+fold inside the ragged refresh window's plain version) against the reference's
+Pallas kernel ``make_ragged_fold`` run in interpret mode, byte for byte, with
+clipped tail reads, empty and over-long lanes and shifted (chained-window)
+starts. The window's wrapper and kernel are held in
+tests/test_torch_refresh_window.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -74,7 +74,7 @@ def test_plain_ragged_fold_matches_pallas_interpret(case, bs, shift):
     wire, jwire = WireFormat(spec.registry, derived), JWire(jspec.registry, derived)
     carry, words, sides, starts, lens, ordv = _inputs(spec, wire, bs, ROWS, WIDTH,
                                                       shift, seed=bs + shift)
-    got = fold_kernels.ragged_fold(
+    got = fold_kernels.ragged_fold_reference(
         *_torch_args(carry, words, sides, starts, lens, ordv),
         width=WIDTH, spec=spec, wire=wire)
     want = make_ragged_fold(jspec, jwire, WIDTH, bs, ROWS, 1)(
@@ -92,63 +92,13 @@ def test_plain_ragged_fold_matches_pallas_interpret(case, bs, shift):
 
 def test_lanes_past_their_length_carry_through():
     """lens 0 leaves a lane's carry as it was, whatever its clipped reads
-    land on; and the plain version never counts a launch."""
+    land on."""
     spec = counter.make_replay_spec()
     wire = WireFormat(spec.registry, {"sequence_number": "ordinal"})
     carry, words, sides, starts, lens, ordv = _inputs(spec, wire, 8, 64, 8, 0, 3)
     lens[:] = 0
-    before = fold_kernels.LAUNCHES["ragged_fold"]
-    out = fold_kernels.ragged_fold(
+    out = fold_kernels.ragged_fold_reference(
         *_torch_args(carry, words, sides, starts, lens, ordv), width=8,
         spec=spec, wire=wire)
-    assert fold_kernels.LAUNCHES["ragged_fold"] == before
     for k in carry:
         assert out[k].numpy().tobytes() == carry[k].tobytes(), k
-
-
-def test_ragged_fold_checks_its_arguments():
-    spec = counter.make_replay_spec()
-    wire = WireFormat(spec.registry, {})
-    carry, words, sides, starts, lens, ordv = _torch_args(
-        *_inputs(spec, wire, 8, 64, 4, 0, 0), device="meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        fold_kernels.ragged_fold(carry, words, sides, starts, lens, ordv,
-                                 width=4, spec=spec, wire=wire)
-    args = _torch_args(*_inputs(spec, wire, 8, 64, 4, 0, 0))
-    with pytest.raises(ValueError, match="rows >= 1"):
-        fold_kernels._check_ragged(args[0], args[1][:0], args[2], *args[3:],
-                                   4, spec, wire)
-    with pytest.raises(ValueError, match="starts"):
-        fold_kernels._check_ragged(args[0], args[1], args[2], args[3].long(),
-                                   *args[4:], 4, spec, wire)
-    with pytest.raises(ValueError, match="side"):
-        fold_kernels._check_ragged(args[0], args[1], {}, *args[3:], 4, spec,
-                                   wire)
-    assert fold_kernels._check_ragged(*args, 4, spec, wire) == (64, 8)
-
-
-@pytest.fixture
-def cuda_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the ragged-fold kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4096, 8, 32768, 0), (1000, 512, 4096, 1024)])
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_kernel_matches_plain_version_on_the_card(cuda_card, case, shape):
-    mk, _, derived = CASES[case]
-    spec = mk()
-    wire = WireFormat(spec.registry, derived)
-    bs, width, rows, shift = shape
-    args = _torch_args(*_inputs(spec, wire, bs, rows, width, shift, seed=7),
-                       device=cuda_card)
-    before = fold_kernels.LAUNCHES["ragged_fold"]
-    got = fold_kernels.ragged_fold(*args, width=width, spec=spec, wire=wire)
-    want = fold_kernels.ragged_fold_reference(*args, width=width, spec=spec,
-                                              wire=wire)
-    torch.cuda.synchronize()
-    assert fold_kernels.LAUNCHES["ragged_fold"] == before + 1
-    for k in want:
-        assert got[k].cpu().numpy().tobytes() == want[k].cpu().numpy().tobytes(), k

@@ -470,9 +470,10 @@ def test_plane_without_a_card_raises(monkeypatch):
 
 
 def test_plain_window_fold_under_the_kernel_backend_equals_the_plain_scan():
-    """A window plan under ``pallas`` folds through tile_scan with lens_rel =
-    counts; its padded slots decode to the pad code either way, so it equals
-    the plain decode + scan of the ``xla`` arm on the same windows."""
+    """A window plan under ``pallas`` folds through K1's dense window, whose
+    lanes stop at their counts; its padded slots decode to the pad code
+    either way, so it equals the plain decode + scan of the ``xla`` arm on
+    the same windows."""
     async def scenario():
         log = make_log()
         exp = Expected()
@@ -492,19 +493,19 @@ def test_plain_window_fold_under_the_kernel_backend_equals_the_plain_scan():
             planes[backend]._seeded = True
             planes[backend]._watermarks = {p: 0 for p in range(NPART)}
         calls = []
-        real = fold_kernels.tile_scan
+        real = fold_kernels.dense_window
 
         def counting(*a, **k):
             calls.append(1)
             return real(*a, **k)
 
-        fold_kernels.tile_scan = counting
+        fold_kernels.dense_window = counting
         try:
             for plane in planes.values():
                 assert await plane._refresh_once()
         finally:
-            fold_kernels.tile_scan = real
-        assert calls  # the pallas arm went through the K1 wrapper
+            fold_kernels.dense_window = real
+        assert calls  # the pallas arm went through the K1 window wrapper
         a, b = (p.audit_pull(p.resident_ids()) for p in planes.values())
         assert a.keys() == b.keys()
         for agg in a:
