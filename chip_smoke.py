@@ -15,12 +15,14 @@ first. Phases:
    bucketed plane's buckets of widths 2, 4, 8 (the steady 4,096-lane
    bucket), 256 and the heavy lane's chained 512, a chained window of long
    lanes over a block's shared memory (the global-read path), clipped
-   reads; windows with and without admission, padding lanes), for three
-   model layouts, with the path each block took as the kernel reports it;
-   K1's list fold over the bench plan's work lists (dense)
-   and, on cut corpora, both sources, three model layouts and the edges
+   reads; windows with and without admission, padding lanes), for five
+   model layouts (counter with the ordinal derived and shipped,
+   bank_account, shopping_cart and saga), with the path each block took as
+   the kernel reports it; K1's list fold over the bench plan's work lists
+   (dense) and, on cut corpora, both sources, the five layouts and the edges
    (bs_small 8; batches of 104, 256 and 2,000 lanes, whose tiles start and
-   end inside a lane block, staged or loaded per lane; width 512);
+   end inside a lane block, staged or loaded per lane; width 512), and on
+   phase 5's 1M carts and 1M sagas (dense);
 2. the main path at full size: ``synth_counter_corpus(1M aggregates, 100M
    events)`` through ``ReplayEngine`` under the bench config (batch 8192,
    time-chunk 64, tile-backend auto), ``pack_resident`` → ``upload_resident``
@@ -41,7 +43,18 @@ first. Phases:
    launch; the profiled round gives the device busy time, idle share and
    the device operations per window. Each window kernel is then held
    against its plain version at every window shape the planes gave it that
-   phase 1 did not check;
+   phase 1 did not check (the saga plane's too);
+5. the families' cold replay: 1M carts and 1M sagas (seeded numpy walks of
+   the reference's ``random_cart_log`` and ``random_saga_log``) on ``auto``
+   (K1, dense), ``flat`` (K1) and ``xla`` (the plain scan), carts also on
+   ``assoc``; the counter 1M/100M corpus and 500k bank accounts on K1 and
+   ``assoc`` in turns; every arm's states byte-equal to the others' (and to
+   the walks' final states), events/s per arm;
+6. the saga family through the resident state plane: 327,680 sagas, 2^18
+   rows, a seed of the logs' prefixes through K1 and 4 refresh rounds of
+   their rests through K2 (one launch a window) while a reader holds every
+   row it reads to its saga's state at that version; no fallback, no signal,
+   and every saga read back byte-equal to a plain cold replay of the log;
 then one JSON line of every kernel's numbers, the card line, and a last line
 ``{"ok": true, "device": {...}}``.
 
@@ -111,8 +124,10 @@ def cuda_ms(fn, repeats: int, inner: int) -> float:
 def device_ms(fn, repeats: int, inner: int) -> float:
     """Device time of one call of ``fn``: the median over ``repeats`` of CUDA
     events around ``inner`` back-to-back calls, each group queued behind a
-    ~1 ms spin kernel so the host's launch cost leaves no gap in the stream
-    (the spin runs before the start event; warmed up first)."""
+    ~10 ms spin kernel so the host's launch cost leaves no gap in the stream
+    (the spin runs before the start event; warmed up first). A ~1 ms spin
+    was too short on a slow host: ten calls of a wrapper with seven side
+    columns took longer to enqueue, and their gaps were timed."""
     import torch
 
     fn()
@@ -121,7 +136,7 @@ def device_ms(fn, repeats: int, inner: int) -> float:
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(20_000_000)
         start.record()
         for _ in range(inner):
             fn()
@@ -131,22 +146,44 @@ def device_ms(fn, repeats: int, inner: int) -> float:
     return statistics.median(times)
 
 
+def reset_launches() -> None:
+    from surge_tpu_torch.replay import fold_kernels
+
+    for k in fold_kernels.LAUNCHES:
+        fold_kernels.LAUNCHES[k] = 0
+
+
 # -- phase 1: kernel against its plain version ---------------------------------------
 
 
 def kernel_cases():
-    """(label, spec, wire) for the three layouts K1 must decode."""
+    """(label, spec, wire) for the five layouts the kernels must decode: the
+    counter with its ordinal derived or shipped, bank_account (bool and f32
+    state), shopping_cart (three side columns, bool state, wrapping
+    products) and saga (seven side columns, twelve state fields), both with
+    the ordinal derived."""
     from surge_tpu_torch.codec.wire import WireFormat
-    from surge_tpu_torch.models import bank_account, counter
+    from surge_tpu_torch.models import bank_account, counter, shopping_cart
+    from surge_tpu_torch.saga import model as saga
 
     cspec = counter.make_replay_spec()
     bspec = bank_account.make_replay_spec()
-    return [
-        ("counter/derived", cspec,
-         WireFormat(cspec.registry, {"sequence_number": "ordinal"})),
+    derived = {"sequence_number": "ordinal"}
+    out = [
+        ("counter/derived", cspec, WireFormat(cspec.registry, derived)),
         ("counter/side", cspec, WireFormat(cspec.registry, {})),
         ("bank_account", bspec, WireFormat(bspec.registry, {})),
     ]
+    for name, mod in (("shopping_cart", shopping_cart), ("saga", saga)):
+        spec = mod.make_replay_spec()
+        out.append((f"{name}/derived", spec, WireFormat(spec.registry, derived)))
+    return out
+
+
+#: the layout of each family the kernels line times (``ms_by_model``)
+MODEL_LAYOUTS = {"counter": "counter/derived",
+                 "shopping_cart": "shopping_cart/derived",
+                 "saga": "saga/derived"}
 
 
 #: the refresh windows phase 1 checks, at the plane's shapes: (label, kind,
@@ -376,8 +413,9 @@ def check_window_case(label: str, spec, wire, c: dict, timed: bool) -> dict:
 
 def phase_windows() -> dict:
     """Both window kernels against their plain versions at the plane's
-    window shapes, three layouts; timed on the plane's layout (counter,
-    derived ordinal)."""
+    window shapes, five layouts; every case timed on the counter plane's
+    layout (counter, derived ordinal), the head shapes (``WINDOW_HEAD``) on
+    each family's layout too."""
     import torch
 
     rows = []
@@ -386,8 +424,11 @@ def phase_windows() -> dict:
                 enumerate(WINDOW_CASES):
             c = window_case(kind, spec, wire, lanes, live, width, t_base, admit,
                             lengths, seed=100 * li + i, capacity=PLANE_CAPACITY)
-            rows.append(check_window_case(f"{layout} {label}", spec, wire, c,
-                                          timed=li == 0))
+            rows.append(dict(check_window_case(
+                f"{layout} {label}", spec, wire, c,
+                timed=li == 0 or (layout in MODEL_LAYOUTS.values()
+                                  and label in WINDOW_HEAD.values())),
+                layout=layout))
             del c
     torch.cuda.empty_cache()
     # the paths the kernels reported: a chained window of long lanes spans
@@ -409,16 +450,17 @@ def phase_windows() -> dict:
     return {"rows": rows}
 
 
-def check_plane_window_shapes(shapes: dict, checked: set) -> list[dict]:
+def check_plane_window_shapes(shapes: dict, checked: set,
+                              layout: str = "counter/derived") -> list[dict]:
     """Each window kernel against its plain version at every window shape
-    the plane gave it in phase 4 (``shapes``: {kind: [[lanes, width, rows,
-    launches], ...]}) that phase 1 did not hold (counter, derived ordinal:
-    the plane's layout), timed."""
-    layout, spec, wire = kernel_cases()[0]
+    a plane gave it in phase 4 or 6 (``shapes``: {kind: [[lanes, width,
+    rows, launches], ...]}) that phase 1 did not hold, on that plane's
+    layout (the family, derived ordinal), timed."""
+    _, spec, wire = next(c for c in kernel_cases() if c[0] == layout)
     rows = []
     for kind, seen in shapes.items():
         for lanes, width, nrows, _ in seen:
-            if (kind, lanes, width, nrows) in checked:
+            if (layout, kind, lanes, width, nrows) in checked:
                 continue
             if kind == "ragged":  # events that pack into exactly nrows rows
                 total = nrows * 3 // 4 if nrows > 8 else 6
@@ -430,10 +472,10 @@ def check_plane_window_shapes(shapes: dict, checked: set) -> list[dict]:
             c = window_case(kind, spec, wire, lanes, live, width, 0, True,
                             lengths, seed=lanes + width, capacity=PLANE_CAPACITY,
                             rows=nrows)
-            rows.append(check_window_case(
+            rows.append(dict(check_window_case(
                 f"{layout} plane {kind} {lanes}x{width}"
                 + (f" rows {nrows}" if kind == "ragged" else ""), spec, wire, c,
-                timed=True))
+                timed=True), layout=layout))
             del c
     return rows
 
@@ -467,7 +509,23 @@ LIST_CASES = [
      {"surge.replay.batch-size": 2000}, (True, False)),
     ("counter/derived width 512", "counter/derived", "cut",
      {"surge.replay.time-chunk": 512}, (True, True)),
+    ("shopping_cart/derived", "shopping_cart/derived", "cut", {}, (True, True)),
+    ("saga/derived", "saga/derived", "cut", {}, (True, True)),
+    ("shopping_cart/derived bs_small 8", "shopping_cart/derived", "tiny", {},
+     (True, False)),
+    ("saga/derived bs_small 8", "saga/derived", "tiny", {}, (True, False)),
+    ("saga/derived batch 104", "saga/derived", "small",
+     {"surge.replay.batch-size": 104}, (False, False)),
+    ("saga/derived batch 2000", "saga/derived", "cut",
+     {"surge.replay.batch-size": 2000}, (True, False)),
+    # the cold replays of phase 5 (1M carts, 1M sagas): the kernels line's
+    # time per cold replay of each family
+    ("shopping_cart/derived 1M", "shopping_cart/derived", "full", {},
+     (True, True)),
+    ("saga/derived 1M", "saga/derived", "full", {}, (True, True)),
 ]
+#: aggregates of the families' corpora, by LIST_CASES corpus name
+FAMILY_SIZES = {"tiny": 64, "small": 3_000, "cut": 100_000, "full": 1_000_000}
 
 
 def list_corpus(layout: str, corpus: str):
@@ -475,13 +533,17 @@ def list_corpus(layout: str, corpus: str):
     lengths, spread 0.6) at 100k aggregates / 5M events ("cut"), 3,000 / 150k
     ("small") or 64 / 1,600 ("tiny"), with the ordinal derived or shipped as a
     side column; bank_account logs for "bank" (500k accounts of 0-89
-    events, as phase 3, cut to 100k) and on the counter's lengths otherwise."""
+    events, as phase 3, cut to 100k) and on the counter's lengths otherwise;
+    the cart and saga walks of phase 5 at ``FAMILY_SIZES[corpus]``."""
     from surge_tpu_torch.codec.tensor import ColumnarEvents
     from surge_tpu_torch.models import bank_account as ba
     from surge_tpu_torch.replay.corpus import synth_counter_corpus
 
     if corpus == "bank":
         return bank_corpus(100_000, seed=6)
+    family = layout.split("/")[0]
+    if family in ("shopping_cart", "saga"):
+        return family_corpus(family, FAMILY_SIZES[corpus], seed=7)[0]
     aggs, events = {"cut": (100_000, 5_000_000), "small": (3_000, 150_000),
                     "tiny": (64, 1_600)}[corpus]
     c = synth_counter_corpus(aggs, events, seed=1)
@@ -594,8 +656,16 @@ def check_list_case(label: str, eng, resident, source: str, seed: int,
     want = {f: v.clone() for f, v in slab.items()}
     for args, kw, schedule in calls:
         fold_kernels.tile_fold_list(got, *args, schedule=schedule, **kw)
+    # the plain version repeats the kernel's arithmetic in eager torch, tile
+    # by tile: a correctness yardstick, not a speed one, timed once here
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for args, kw, _ in calls:
         fold_kernels.tile_fold_list_reference(want, *args, **kw)
+    end.record()
     torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
     err = 0.0
     for name in slab:
         g, w = got[name].cpu().numpy(), want[name].cpu().numpy()
@@ -625,11 +695,6 @@ def check_list_case(label: str, eng, resident, source: str, seed: int,
             for i in range(len(calls)):
                 fold_list(i)()
 
-        def replay_lists_plain():
-            for args, kw, _ in calls:
-                fold_kernels.tile_fold_list_reference(got, *args, **kw)
-
-        plain_ms = cuda_ms(replay_lists_plain, 1, 1)
         bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ops_ms = steps * 12 / INT32_OPS_PER_S * 1e3
         row.update({
@@ -641,8 +706,6 @@ def check_list_case(label: str, eng, resident, source: str, seed: int,
             "ms_source": "events",
             # the wrapper's time per replay, host launch cost included
             "call_ms": cuda_ms(replay_lists, 7, 10),
-            # the plain version repeats the kernel's arithmetic in eager
-            # torch, tile by tile: a correctness yardstick, not a speed one
             "plain_ms": plain_ms,
             "bound_ms": max(bound_bytes_ms, bound_ops_ms),
             "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"})
@@ -657,11 +720,13 @@ def phase_list_kernel(bench_events) -> dict:
     import torch
 
     from surge_tpu_torch.config import Config
-    from surge_tpu_torch.models import bank_account, counter
+    from surge_tpu_torch.models import bank_account, counter, shopping_cart
     from surge_tpu_torch.replay.engine import ReplayEngine
+    from surge_tpu_torch.saga import model as saga
 
     specs = {"counter/derived": counter, "counter/side": counter,
-             "bank_account": bank_account}
+             "bank_account": bank_account,
+             "shopping_cart/derived": shopping_cart, "saga/derived": saga}
     rows = []
     cfg = Config(overrides=BENCH_CONFIG)
     eng = ReplayEngine(counter.make_replay_spec(), config=cfg)
@@ -673,10 +738,13 @@ def phase_list_kernel(bench_events) -> dict:
         eng = ReplayEngine(specs[layout].make_replay_spec(),
                            config=Config(overrides=dict(BENCH_CONFIG, **over)))
         resident = eng.upload_resident(eng.pack_resident(list_corpus(layout, corpus)))
-        for source in ("dense", "flat"):
-            rows.append(check_list_case(label, eng, resident, source,
-                                        seed=i + 1, bulk=bulk,
-                                        timed=corpus in ("cut", "bank")))
+        # the 1M corpora's flat source is phase 5's `flat` arm, held there
+        # against the plain scan
+        for source in ("dense",) if corpus == "full" else ("dense", "flat"):
+            rows.append(check_list_case(
+                label, eng, resident, source, seed=i + 1, bulk=bulk,
+                timed=corpus in ("cut", "bank") or (corpus == "full"
+                                                    and source == "dense")))
         del eng, resident
     torch.cuda.empty_cache()
     return {"rows": rows}
@@ -731,8 +799,7 @@ def drive_main_path(corpus, layout: str, card: str) -> dict:
     cfg = Config(overrides=dict(BENCH_CONFIG, **{
         "surge.replay.resident-layout": layout}))
     torch.cuda.reset_peak_memory_stats()
-    for k in fold_kernels.LAUNCHES:
-        fold_kernels.LAUNCHES[k] = 0
+    reset_launches()
     eng = ReplayEngine(counter.make_replay_spec(), config=cfg)
     t0 = time.perf_counter()
     wire = eng.pack_resident(corpus.events)
@@ -850,6 +917,165 @@ def bank_corpus(num_accounts: int, seed: int):
                           type_ids=type_ids, cols=cols)
 
 
+def _columnar(n: int, ev_type: np.ndarray, ev_cols: dict):
+    """The columnar corpus of per-step event arrays ``[T, n]`` (type -1: no
+    event at that step), aggregate-major, with the sequence number derived."""
+    from surge_tpu_torch.codec.tensor import ColumnarEvents
+
+    mask = ev_type.T >= 0
+    agg = np.repeat(np.arange(n, dtype=np.int32), mask.sum(axis=1))
+    return ColumnarEvents(
+        num_aggregates=n, agg_idx=agg, type_ids=ev_type.T[mask],
+        cols={k: v.T[mask] for k, v in ev_cols.items()},
+        derived_cols={"sequence_number": "ordinal"})
+
+
+def cart_walk(num_carts: int, seed: int):
+    """``(corpus, expected)``: shopping-cart logs with the shape of the
+    reference's ``random_cart_log`` (surge_tpu/testing/support.py), walked
+    for every cart at once: 0-19 commands, add 60% (item 1-49, quantity 1-3,
+    price 100-899), remove 30% (quantity 1-2, at most the items held; none
+    held: no event), checkout 10%, which ends the cart. ``expected`` is each
+    cart's state after its log."""
+    from surge_tpu_torch.models import shopping_cart as sc
+
+    rng = np.random.default_rng(seed)
+    n = num_carts
+    n_cmd = rng.integers(0, 20, size=n)
+    have = np.zeros(n, np.int32)
+    total = np.zeros(n, np.int32)
+    checked = np.zeros(n, bool)
+    ver = np.zeros(n, np.int32)
+    ev_type = np.full((19, n), -1, np.int32)
+    ev_cols = {k: np.zeros((19, n), np.int32)
+               for k in ("item_code", "quantity", "unit_price_cents")}
+    for t in range(19):
+        active = (t < n_cmd) & ~checked
+        r = rng.random(n)
+        item = rng.integers(1, 50, size=n, dtype=np.int32)
+        price = rng.integers(100, 900, size=n, dtype=np.int32)
+        q_add = rng.integers(1, 4, size=n, dtype=np.int32)
+        q_rem = np.minimum(rng.integers(1, 3, size=n, dtype=np.int32), have)
+        add = active & (r < 0.6)
+        rem = active & (r >= 0.6) & (r < 0.9) & (q_rem > 0)
+        out = active & (r >= 0.9)
+        emit = add | rem | out
+        qty = np.where(add, q_add, np.where(rem, q_rem, 0))
+        ev_type[t] = np.where(add, sc.ADDED, np.where(
+            rem, sc.REMOVED, np.where(out, sc.CHECKED_OUT, -1)))
+        ev_cols["item_code"][t] = np.where(add | rem, item, 0)
+        ev_cols["quantity"][t] = qty
+        ev_cols["unit_price_cents"][t] = np.where(add | rem, price, 0)
+        sign = np.where(add, 1, np.where(rem, -1, 0)).astype(np.int32)
+        have += sign * qty
+        total += sign * qty * np.where(add | rem, price, 0)
+        checked |= out
+        ver += emit
+    expected = {"item_count": have, "total_cents": total,
+                "checked_out": checked, "version": ver}
+    return _columnar(n, ev_type, ev_cols), expected
+
+
+#: the saga's state fields, in the schema's order
+SAGA_FIELDS = ("def_id", "num_steps", "status", "step", "committed",
+               "compensated", "attempts", "c0", "c1", "c2", "c3", "version")
+#: its float32 fields (the context slots); the rest are int32
+SAGA_FLOATS = ("c0", "c1", "c2", "c3")
+
+
+def saga_walk(num_sagas: int, seed: int):
+    """``(corpus, prefix)``: saga logs with the walk of the reference's
+    ``random_saga_log`` (surge_tpu/testing/support.py), for every saga at
+    once: 10% never start; a start has ``num_steps`` 1-6, ``def_id`` 1-3,
+    ``c0`` 0-99, ``c1`` 0-1; each running step commits with p 0.75 (all
+    committed: completed) and 15% of sagas stop after a commit, else one
+    failure (attempts 1-4) flips the saga to compensation (nothing committed:
+    compensated); each compensation step undoes the highest pending step,
+    10% dead-letter instead, and 10% stop after one. ``prefix[f][k, i]`` is
+    field ``f`` of saga ``i`` after its first ``k`` events (the last row
+    holds every saga's final state)."""
+    from surge_tpu_torch.saga import model as sg
+
+    rng = np.random.default_rng(seed)
+    n, t_max = num_sagas, 14
+    st = {f: np.zeros(n, np.float32 if f in SAGA_FLOATS else np.int32)
+          for f in SAGA_FIELDS}
+    prefix = {f: np.zeros((t_max + 1, n), v.dtype) for f, v in st.items()}
+    ev_type = np.full((t_max, n), -1, np.int32)
+    ev_cols = {k: np.zeros((t_max, n), np.float32 if k in SAGA_FLOATS else np.int32)
+               for k in ("attempts", "c0", "c1", "c2", "c3", "def_id",
+                         "num_steps", "step")}
+    # 1 running, 2 compensating, 0 no further event
+    phase = np.where(rng.random(n) < 0.9, 3, 0)  # 3: starts now
+    for t in range(t_max):
+        r, stop = rng.random(n), rng.random(n)
+        start = phase == 3
+        commit = (phase == 1) & (r < 0.75)
+        fail = (phase == 1) & (r >= 0.75)
+        pending = st["committed"] & ~st["compensated"]
+        high = np.floor(np.log2(np.maximum(pending, 1))).astype(np.int32)
+        dead = (phase == 2) & (r < 0.1)
+        comp = (phase == 2) & (r >= 0.1)
+        emit = start | commit | fail | dead | comp
+        if not emit.any():
+            break
+        ev_type[t] = np.select([start, commit, fail, comp, dead],
+                               [sg.STARTED, sg.STEP_COMMITTED, sg.STEP_FAILED,
+                                sg.STEP_COMPENSATED, sg.DEAD_LETTERED], -1)
+        num = rng.integers(1, 7, size=n, dtype=np.int32)
+        c0 = rng.integers(0, 100, size=n).astype(np.float32)
+        c1 = rng.integers(0, 2, size=n).astype(np.float32)
+        attempts = rng.integers(1, 5, size=n, dtype=np.int32)
+        step = np.where(commit | fail, st["step"], np.where(dead | comp, high, 0))
+        ev_cols["step"][t] = step
+        ev_cols["attempts"][t] = np.where(fail, attempts, 0)
+        ev_cols["def_id"][t] = np.where(start, rng.integers(1, 4, size=n), 0)
+        ev_cols["num_steps"][t] = np.where(start, num, 0)
+        ev_cols["c0"][t] = np.where(start, c0, 0)
+        ev_cols["c1"][t] = np.where(start, c1, 0)
+        # the state after the event, as SagaModel.handle_event folds it
+        for f in ("def_id", "num_steps", "c0", "c1"):
+            st[f] = np.where(start, ev_cols[f][t], st[f])
+        for f in ("c2", "c3", "step", "committed", "compensated"):
+            st[f] = np.where(start, 0, st[f])
+        bit = np.left_shift(1, step).astype(np.int32)
+        st["committed"] = np.where(commit, st["committed"] | bit, st["committed"])
+        st["compensated"] = np.where(comp, st["compensated"] | bit,
+                                     st["compensated"])
+        full = (np.left_shift(1, st["num_steps"]) - 1).astype(np.int32)
+        done = commit & (st["committed"] == full)
+        undone = comp & (st["compensated"] == st["committed"])
+        nothing = fail & (st["committed"] == 0)
+        st["status"] = np.select(
+            [start, commit, fail, comp, dead],
+            [sg.RUNNING, np.where(done, sg.COMPLETED, sg.RUNNING),
+             np.where(nothing, sg.COMPENSATED, sg.COMPENSATING),
+             np.where(undone, sg.COMPENSATED, sg.COMPENSATING),
+             sg.DEAD_LETTER], st["status"]).astype(np.int32)
+        st["step"] = np.where(commit, step + 1, st["step"])
+        st["attempts"] = np.where(start | commit, 0,
+                                  np.where(fail, attempts, st["attempts"]))
+        st["version"] = st["version"] + emit
+        phase = np.select(
+            [start, commit & ~done & (stop >= 0.15), fail & ~nothing,
+             comp & ~undone & (stop >= 0.1)], [1, 1, 2, 2], 0)
+        for f, v in st.items():
+            prefix[f][st["version"], np.arange(n)] = np.where(
+                emit, v, prefix[f][st["version"], np.arange(n)])
+    for f, v in st.items():  # the last row: every saga's final state
+        prefix[f][t_max] = v
+    return _columnar(n, ev_type, ev_cols), prefix
+
+
+def family_corpus(model: str, n: int, seed: int):
+    """The cold-replay corpus of a family: ``(corpus, expected final
+    states)`` (counter and bank_account expect nothing here)."""
+    if model == "shopping_cart":
+        return cart_walk(n, seed)
+    corpus, prefix = saga_walk(n, seed)
+    return corpus, {f: v[-1] for f, v in prefix.items()}
+
+
 def phase_resume_and_bank(card: str) -> dict:
     from surge_tpu_torch.config import Config
     from surge_tpu_torch.models import bank_account, counter
@@ -887,6 +1113,133 @@ def phase_resume_and_bank(card: str) -> dict:
            "bank_events": bcol.num_events, "ok": True}
     log("phase3 " + json.dumps(row))
     return row
+
+
+# -- phase 5: the families' cold replay, and assoc against K1 -----------------------
+
+#: phase 5's corpora: 1M carts and 1M sagas (the walks above), seeded
+FAMILY_AGGREGATES = 1_000_000
+#: phase 5's arms: K1's list fold on the dense tiles auto picks and on the
+#: flat corpus, the plain scan (select dispatch: the same fold, fewer eager
+#: ops a step than switch) and the assoc tree fold
+ARMS = {"auto": {}, "flat": {"surge.replay.resident-layout": "flat"},
+        "xla": {"surge.replay.tile-backend": "xla",
+                "surge.replay.dispatch": "select"},
+        "assoc": {"surge.replay.tile-backend": "assoc"}}
+
+
+def run_arm(spec, corpus, arm: str, replays: int, resident=None) -> dict:
+    """One arm of a family's cold replay: pack, upload and warm (unless a
+    resident corpus is given) and, but on the plain scan, one untimed
+    replay (its first pull pays for the host buffers and the inverse
+    permutation: 12-17 ms where the next take 2-6; the plain scan takes
+    seconds), then ``replays`` replays, timed on the host clock (each ends
+    in the device→host pull); the launches made from the reset to the end
+    of the last replay; the last replay's states."""
+    import torch
+
+    from surge_tpu_torch.config import Config
+    from surge_tpu_torch.replay import fold_kernels
+    from surge_tpu_torch.replay.engine import ReplayEngine
+
+    reset_launches()
+    eng = ReplayEngine(spec, config=Config(overrides=dict(BENCH_CONFIG, **ARMS[arm])))
+    t0 = time.perf_counter()
+    if resident is None:
+        resident = eng.upload_resident(eng.pack_resident(corpus))
+    eng.warm_resident(resident)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    plan = eng._plan_for(resident)
+    n_lists = int(len(plan.big_i0) > 0) + int(len(plan.small_i0) > 0)
+    folds, res = [], None
+    warm = int(arm != "xla")
+    for i in range(replays + warm):
+        l0 = fold_kernels.LAUNCHES["tile_fold_list"]
+        f0 = time.perf_counter()
+        res = eng.replay_resident(resident)
+        if i >= warm:
+            folds.append(time.perf_counter() - f0)
+        made = fold_kernels.LAUNCHES["tile_fold_list"] - l0
+        want = n_lists if eng.tile_backend == "pallas" else 0
+        if made != want:
+            raise AssertionError(f"{arm}: a replay launched the list fold {made} "
+                                 f"times, not {want}")
+    launches = dict(fold_kernels.LAUNCHES)
+    if launches["dense_window"] or launches["ragged_window"]:
+        raise AssertionError(f"{arm}: a cold replay launched a window kernel")
+    if eng.tile_backend == "pallas" and launches["tile_fold_list"] <= 0:
+        raise AssertionError(f"{arm}: the kernel arm launched K1 no time")
+    return {"states": res.states, "resident": resident, "row": {
+        "arm": arm, "backend": eng.tile_backend,
+        "dense": eng._use_dense(resident, plan),
+        "events_per_s_median": resident.num_events / statistics.median(folds),
+        "events_per_s_best": resident.num_events / min(folds),
+        "fold_s": folds, "setup_s": setup_s, "launches": launches}}
+
+
+def same_states(label: str, got: dict, want: dict) -> None:
+    for name, col in want.items():
+        g = np.asarray(got[name])
+        if g.dtype != np.asarray(col).dtype or g.tobytes() != np.asarray(col).tobytes():
+            bad = np.flatnonzero(g != col)[:5]
+            raise AssertionError(f"{label}: field {name!r} differs at {bad}")
+
+
+def phase_families(card: str, counter_corpus) -> dict:
+    """1M carts and 1M sagas replayed on auto (K1, dense), flat (K1) and
+    xla (the plain scan), and carts on assoc; the counter 1M/100M corpus
+    and a bank_account corpus on K1 against assoc. Every arm's states must
+    equal the others' byte for byte, and the families' their walks' closed
+    forms. Events/s of every arm; launches of K1 by path."""
+    from surge_tpu_torch.models import bank_account, counter, shopping_cart
+    from surge_tpu_torch.saga import model as saga
+
+    out: dict = {"card": card, "families": {}, "launches": {}}
+    for model, mod, arms in (
+            ("shopping_cart", shopping_cart, ("auto", "flat", "xla", "assoc")),
+            ("saga", saga, ("auto", "flat", "xla"))):
+        t0 = time.perf_counter()
+        corpus, expected = family_corpus(model, FAMILY_AGGREGATES, seed=11)
+        walk_s = time.perf_counter() - t0
+        spec = mod.make_replay_spec()
+        rows, states = [], {}
+        for arm in arms:
+            r = run_arm(spec, corpus, arm, replays=3 if arm in ("auto", "flat") else 1)
+            rows.append(r["row"])
+            states[arm] = r["states"]
+            out["launches"][f"cold_replay_{model}_{arm}"] = r["row"]["launches"]
+            del r
+            same_states(f"{model} {arm} against the closed form", states[arm],
+                        expected)
+            same_states(f"{model} {arm} against auto", states[arm], states["auto"])
+        out["families"][model] = {"aggregates": FAMILY_AGGREGATES,
+                                  "events": corpus.num_events, "walk_s": walk_s,
+                                  "arms": rows}
+        log(f"phase5 {model} " + json.dumps(out["families"][model]))
+    # the counter 1M/100M corpus on K1 and assoc in turns (K1, assoc, assoc,
+    # K1), on one uploaded corpus; bank_account likewise
+    for model, spec, corpus, expected in (
+            ("counter", counter.make_replay_spec(), counter_corpus.events,
+             {"count": counter_corpus.expected_count.astype(np.int32),
+              "version": counter_corpus.expected_version.astype(np.int32)}),
+            ("bank_account", bank_account.make_replay_spec(),
+             bank_corpus(500_000, seed=5), None)):
+        rows, resident, first = [], None, None
+        for arm in ("auto", "assoc", "assoc", "auto"):
+            r = run_arm(spec, corpus, arm, replays=2, resident=resident)
+            resident = r["resident"]
+            rows.append(r["row"])
+            if expected is not None:
+                same_states(f"{model} {arm} against the closed form",
+                            r["states"], expected)
+            first = first or r["states"]
+            same_states(f"{model} {arm} against K1", r["states"], first)
+            del r
+        out["families"][model] = {"events": resident.num_events, "arms": rows}
+        del resident
+        log(f"phase5 {model} " + json.dumps(out["families"][model]))
+    return out
 
 
 # -- phase 4: the resident state plane -----------------------------------------------
@@ -1191,14 +1544,12 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
     plane._upload = counted_upload
     plane._run_window = marked_window
     torch.cuda.reset_peak_memory_stats()
-    for k in fold_kernels.LAUNCHES:
-        fold_kernels.LAUNCHES[k] = 0
+    reset_launches()
     t0 = time.perf_counter()
     await plane.start()
     start_s = time.perf_counter() - t0
     seed_launches = dict(fold_kernels.LAUNCHES)
-    for k in fold_kernels.LAUNCHES:
-        fold_kernels.LAUNCHES[k] = 0
+    reset_launches()
     # the shape of every window the rounds give each window kernel, so each
     # is held against the plain version after the run
     window_shapes: dict = {"dense": [], "ragged": []}
@@ -1335,6 +1686,290 @@ def phase_plane(card: str) -> dict:
     return {"main": main, "dense": dense}
 
 
+# -- phase 6: the saga family through the resident state plane ----------------------
+
+SAGA_TOPIC = "saga-events"
+#: the saga plane's deployment: 2^18 resident rows, 1.25x as many sagas (the
+#: seed spills the rest), 4 refresh rounds of about 32k events
+SAGA_PLANE_SAGAS = 327_680
+SAGA_PLANE_CAPACITY = 1 << 18
+SAGA_PLANE_ROUNDS = 4
+#: events a round appends to each partition: under the poll's and the
+#: staleness bound's 4,096, so a round folds in one poll and reads never
+#: fall back for lag
+SAGA_ROUND_BUDGET = 3_900
+#: one saga event on the log, little-endian — decoded by saga_events
+SAGA_RECORD = np.dtype([("type", "u1"), ("step", "u1"), ("attempts", "<i4"),
+                        ("def_id", "<i4"), ("num_steps", "<i4"),
+                        ("c", "<f4", (4,)), ("seq", "<u4")])
+
+
+def saga_events(raws):
+    """A batch of saga event records → the port's saga events."""
+    from surge_tpu_torch.saga import model as sg
+
+    recs = np.frombuffer(b"".join(raws), dtype=SAGA_RECORD)
+    out = []
+    for t, step, att, d, num, c, seq in zip(
+            recs["type"].tolist(), recs["step"].tolist(),
+            recs["attempts"].tolist(), recs["def_id"].tolist(),
+            recs["num_steps"].tolist(), recs["c"].tolist(), recs["seq"].tolist()):
+        if t == sg.STARTED:
+            out.append(sg.SagaStarted("", d, num, *c, seq))
+        elif t == sg.STEP_COMMITTED:
+            out.append(sg.SagaStepCommitted("", step, seq))
+        elif t == sg.STEP_FAILED:
+            out.append(sg.SagaStepFailed("", step, att, seq))
+        elif t == sg.STEP_COMPENSATED:
+            out.append(sg.SagaStepCompensated("", step, seq))
+        else:
+            out.append(sg.SagaDeadLettered("", step, seq))
+    return out
+
+
+def saga_event(raw):
+    return saga_events([raw])[0]
+
+
+def saga_rounds(corpus, rng) -> tuple[np.ndarray, list]:
+    """Split the sagas' logs into the seed's events and SAGA_PLANE_ROUNDS
+    rounds: per round and partition, sagas whose whole rest of the log (from
+    a random cut, 0 for a saga that starts in the round) fits
+    SAGA_ROUND_BUDGET events. Returns each event's round (-1: the seed) and
+    each round's events."""
+    n = corpus.num_aggregates
+    lengths = np.bincount(corpus.agg_idx, minlength=n)
+    starts = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lengths, out=starts[1:])
+    pos = np.arange(corpus.num_events) - starts[corpus.agg_idx]
+    cut = np.full(n, np.iinfo(np.int64).max)
+    rnd = np.full(n, -1)
+    order = rng.permutation(np.flatnonzero(lengths > 0))
+    for p in range(PLANE_PARTITIONS):
+        mine = order[order % PLANE_PARTITIONS == p]
+        c = rng.integers(0, lengths[mine])
+        rest = lengths[mine] - c
+        k = 0
+        for r in range(SAGA_PLANE_ROUNDS):
+            take = np.searchsorted(np.cumsum(rest[k:]), SAGA_ROUND_BUDGET,
+                                   side="right")
+            cut[mine[k:k + take]] = c[k:k + take]
+            rnd[mine[k:k + take]] = r
+            k += take
+    ev_round = np.where(pos >= cut[corpus.agg_idx], rnd[corpus.agg_idx], -1)
+    return ev_round, [np.flatnonzero(ev_round == r) for r in range(SAGA_PLANE_ROUNDS)]
+
+
+class SagaLog:
+    """The port's InMemoryLog of saga event records."""
+
+    def __init__(self, corpus):
+        from surge_tpu_torch.log import InMemoryLog, TopicSpec
+
+        self.log = InMemoryLog()
+        self.log.create_topic(TopicSpec(SAGA_TOPIC, PLANE_PARTITIONS))
+        self.ids = [f"s{i}" for i in range(corpus.num_aggregates)]
+        n = corpus.num_events
+        lengths = np.bincount(corpus.agg_idx, minlength=corpus.num_aggregates)
+        starts = np.zeros(corpus.num_aggregates + 1, dtype=np.int64)
+        np.cumsum(lengths, out=starts[1:])
+        recs = np.zeros(n, dtype=SAGA_RECORD)
+        recs["type"] = corpus.type_ids
+        for f in ("step", "attempts", "def_id", "num_steps"):
+            recs[f] = corpus.cols[f]
+        recs["c"] = np.stack([corpus.cols[f"c{i}"] for i in range(4)], axis=1)
+        recs["seq"] = np.arange(n) - starts[corpus.agg_idx] + 1
+        self.buf, self.agg = recs.tobytes(), corpus.agg_idx
+        self._producer = self.log.transactional_producer("chip-smoke")
+
+    def append(self, events: np.ndarray) -> int:
+        """Append the corpus's events ``events`` (indices, each saga's in log
+        order) as one transaction."""
+        from surge_tpu_torch.log import LogRecord
+
+        w = SAGA_RECORD.itemsize
+        prod, buf, ids = self._producer, self.buf, self.ids
+        prod.begin()
+        for j, a in zip(events.tolist(), self.agg[events].tolist()):
+            prod.send(LogRecord(topic=SAGA_TOPIC, key=ids[a],
+                                value=buf[j * w:(j + 1) * w],
+                                partition=a % PLANE_PARTITIONS))
+        prod.commit()
+        return len(events)
+
+
+def saga_rows(states: dict, ids: list) -> dict:
+    """The read states' fields as arrays of the schema's dtypes."""
+    return {f: np.fromiter((getattr(states[a], f) for a in ids),
+                           dtype=np.float32 if f in SAGA_FLOATS else np.int32,
+                           count=len(ids)) for f in SAGA_FIELDS}
+
+
+async def saga_torn_reader(plane, slog, readable: np.ndarray, prefix: dict,
+                           stop, seen: dict):
+    """Read random sagas while rounds run: every row must equal its saga's
+    state after exactly ``version`` events (a torn row mixes two)."""
+    rng = np.random.default_rng(12)
+    while not stop.is_set():
+        pick = rng.choice(readable, size=4096)
+        ids = [slog.ids[i] for i in pick.tolist()]
+        got = await plane.read_many(ids)
+        if len(got) != len(set(ids)):
+            raise AssertionError(f"read_many served {len(got)} of {len(set(ids))}")
+        rows = saga_rows(got, ids)
+        v = rows["version"]
+        for f in SAGA_FIELDS:
+            if rows[f].tobytes() != prefix[f][v, pick].tobytes():
+                bad = int(np.flatnonzero(rows[f] != prefix[f][v, pick])[0])
+                raise AssertionError(f"torn saga row {ids[bad]}: {f} "
+                                     f"{rows[f][bad]} at version {v[bad]}")
+        seen["reads"] += 1
+        seen["rows"] += len(ids)
+        await asyncio.sleep(0)
+
+
+async def drive_saga_plane(card: str) -> dict:
+    """The saga family through the plane: a seed of the logs' prefixes, then
+    SAGA_PLANE_ROUNDS refresh rounds of their rests (spilled sagas re-admit,
+    new sagas start) while a reader checks every row it reads; fails on any
+    signal, fallback or torn row, unless each refresh window is one K2
+    launch, and unless the final states equal, byte for byte, the walk's
+    closed form and a plain cold replay (xla) of the whole log."""
+    import torch
+
+    from surge_tpu_torch.config import Config
+    from surge_tpu_torch.replay import fold_kernels
+    from surge_tpu_torch.replay.engine import ReplayEngine
+    from surge_tpu_torch.replay.resident_state import ResidentStatePlane
+    from surge_tpu_torch.saga import model as sg
+
+    rng = np.random.default_rng(6)
+    t0 = time.perf_counter()
+    corpus, prefix = saga_walk(SAGA_PLANE_SAGAS, seed=13)
+    ev_round, rounds = saga_rounds(corpus, rng)
+    slog = SagaLog(corpus)
+    slog.append(np.flatnonzero(ev_round == -1))
+    log_s = time.perf_counter() - t0
+    seeded = np.unique(corpus.agg_idx[ev_round == -1])
+    signals: list = []
+    ledger = RoundLedger()
+    plane = ResidentStatePlane(
+        slog.log, SAGA_TOPIC, sg.make_replay_spec(),
+        config=Config(overrides={
+            "surge.replay.resident.capacity": SAGA_PLANE_CAPACITY}),
+        deserialize_event=saga_event, deserialize_events=saga_events,
+        serialize_state=lambda agg, st: repr(st).encode(),
+        derived_cols={"sequence_number": "ordinal"},
+        on_signal=lambda name, level: signals.append((name, level)),
+        ledger=ledger)
+    if plane.engine.tile_backend != "pallas":
+        raise AssertionError("the saga plane's backend did not resolve to the kernels")
+    reset_launches()
+    t0 = time.perf_counter()
+    await plane.start()
+    start_s = time.perf_counter() - t0
+    seed_launches = dict(fold_kernels.LAUNCHES)
+    reset_launches()
+    shapes: list = []
+    real = fold_kernels.ragged_window
+
+    def seen_window(slab, ords, table, words, sides, **kw):
+        shapes.append((table.shape[1], kw["width"], words.shape[0]))
+        return real(slab, ords, table, words, sides, **kw)
+
+    fold_kernels.ragged_window = seen_window
+    stop = asyncio.Event()
+    seen = {"reads": 0, "rows": 0}
+    reader = asyncio.ensure_future(saga_torn_reader(plane, slog, seeded, prefix,
+                                                    stop, seen))
+    per_round = []
+    walls = []
+    try:
+        for r, events in enumerate(rounds):
+            n0 = len(ledger.rounds)
+            slog.append(events)
+            w0 = time.perf_counter()
+            await wait_lag_zero(plane, 300.0)
+            wall = time.perf_counter() - w0
+            walls.append(wall)
+            for kw in ledger.rounds[n0:]:
+                per_round.append({"round": r, "events": kw["events"],
+                                  "lanes": kw["lanes"],
+                                  "windows": kw["windows"],
+                                  "evictions": kw["evictions"],
+                                  "buckets": [[b["lanes_b"], b["width"]]
+                                              for b in kw["buckets"] or ()],
+                                  "round_wall_ms": wall * 1e3})
+            if seen["reads"] == 0:
+                await asyncio.sleep(0.01)
+    finally:
+        fold_kernels.ragged_window = real
+        stop.set()
+        await reader
+    refresh_launches = dict(fold_kernels.LAUNCHES)
+    # every saga with events, read back against the walk's final states and
+    # a plain cold replay of the whole log
+    with_events = np.flatnonzero(np.bincount(corpus.agg_idx,
+                                             minlength=SAGA_PLANE_SAGAS) > 0)
+    ids = [slog.ids[i] for i in with_events.tolist()]
+    t0 = time.perf_counter()
+    got = {}
+    for lo in range(0, len(ids), 65536):
+        got.update(await plane.read_many(ids[lo:lo + 65536]))
+    read_s = time.perf_counter() - t0
+    await plane.stop()
+    if len(got) != len(ids):
+        raise AssertionError(f"read_many served {len(got)} of {len(ids)} sagas")
+    rows = saga_rows(got, ids)
+    same_states("the saga plane against the walk's final states", rows,
+                {f: v[-1][with_events] for f, v in prefix.items()})
+    xla = ReplayEngine(sg.make_replay_spec(), config=Config(overrides=dict(
+        BENCH_CONFIG, **ARMS["xla"])))
+    want = xla.replay_resident(xla.prepare_resident(corpus)).states
+    same_states("the saga plane against a plain cold replay", rows,
+                {f: v[with_events] for f, v in want.items()})
+    windows = sum(r["windows"] for r in per_round)
+    if signals:
+        raise AssertionError(f"the saga plane signalled {signals}")
+    if plane.stats["fallbacks"]:
+        raise AssertionError(f"{plane.stats['fallbacks']} saga reads fell back: "
+                             f"{plane.fallback_causes}")
+    if plane.stats["evictions"] <= 0:
+        raise AssertionError("no saga round evicted")
+    if seed_launches["tile_fold_list"] <= 0 or (seed_launches["dense_window"]
+                                                or seed_launches["ragged_window"]):
+        raise AssertionError(f"the saga seed's launches: {seed_launches}")
+    if (refresh_launches["ragged_window"] != windows or windows <= 0
+            or sum(refresh_launches.values()) != windows
+            or len(shapes) != windows):
+        raise AssertionError(
+            f"{windows} saga refresh windows made {refresh_launches} launches "
+            f"({len(shapes)} window calls), not one ragged-window launch each")
+    if seen["reads"] == 0:
+        raise AssertionError("the saga reader never read")
+    ev = sum(r["events"] for r in per_round)
+    return {"card": card, "sagas": SAGA_PLANE_SAGAS,
+            "capacity": SAGA_PLANE_CAPACITY, "log_build_s": log_s,
+            "seed_events": int((ev_round == -1).sum()), "start_s": start_s,
+            "seed": plane.seed_timing, "seed_launches": seed_launches,
+            "refresh_launches": refresh_launches, "refresh_windows": windows,
+            "rounds": per_round,
+            "refresh_events_per_s": ev / sum(walls),
+            "window_shapes": [[*shape, shapes.count(shape)]
+                              for shape in sorted(set(shapes))],
+            "read_back_sagas": len(ids),
+            "read_back_rows_per_s": len(ids) / read_s, "torn_reader": seen,
+            "evictions": plane.stats["evictions"],
+            "fallbacks": plane.stats["fallbacks"],
+            "device_mem_peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_saga_plane(card: str) -> dict:
+    row = asyncio.run(drive_saga_plane(card))
+    log("phase6 " + json.dumps(row))
+    return row
+
+
 def total_launches(paths: dict) -> int | None:
     """The launches of the paths that ran in this call; None if none ran."""
     ran = [n for n in paths.values() if n is not None]
@@ -1343,7 +1978,7 @@ def total_launches(paths: dict) -> int | None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -1367,7 +2002,7 @@ def main() -> int:
     fold_kernels.load()
 
     corpus = None
-    if phases & {1, 2}:
+    if phases & {1, 2, 5}:
         t0 = time.perf_counter()
         corpus = synth_counter_corpus(1_000_000, 100_000_000, seed=0)
         log(f"phase1 corpus_s: {time.perf_counter() - t0:.3f}")
@@ -1379,20 +2014,29 @@ def main() -> int:
     if 2 in phases:
         main_rows.append(drive_main_path(corpus, "auto", card))
         main_rows.append(drive_main_path(corpus, "flat", card))
+    families = None
+    if 5 in phases:
+        families = phase_families(card, corpus)
     del corpus
     if 3 in phases:
         phase_resume_and_bank(card)
+    checked = ({(r["layout"], r["kind"], r["lanes"], r["width"],
+                 r["rows"] if r["kind"] == "ragged" else 0)
+                for r in windows["rows"]} if windows is not None else set())
+    plane_rows = []
     plane = None
     if 4 in phases:
         plane = phase_plane(card)
-        checked = ({(r["kind"], r["lanes"], r["width"],
-                     r["rows"] if r["kind"] == "ragged" else 0)
-                    for r in windows["rows"]} if windows is not None else set())
         shapes = {"dense": plane["dense"]["window_shapes"]["dense"],
                   "ragged": plane["main"]["window_shapes"]["ragged"]}
-        rows = check_plane_window_shapes(shapes, checked)
-        if windows is not None:
-            windows["rows"].extend(rows)
+        plane_rows += check_plane_window_shapes(shapes, checked)
+    saga_plane = None
+    if 6 in phases:
+        saga_plane = phase_saga_plane(card)
+        plane_rows += check_plane_window_shapes(
+            {"ragged": saga_plane["window_shapes"]}, checked, "saga/derived")
+    if windows is not None:
+        windows["rows"].extend(plane_rows)
 
     if windows is not None:
         # launches on each main path, read right after that path ran with
@@ -1408,19 +2052,27 @@ def main() -> int:
                                          "launches", name),
             "cold_replay_flat": launches(main_rows[1] if main_rows else None,
                                          "launches", name),
+            **{path: (families["launches"][path][name] if families else None)
+               for path in (f"cold_replay_{m}_{a}" for m in ("shopping_cart", "saga")
+                            for a in ("auto", "flat", "xla", "assoc")
+                            if (m, a) != ("saga", "assoc"))},
             "plane_seed": launches(main_p, "seed_launches", name),
             "plane_refresh": launches(main_p, "refresh_launches", name),
             "plane_dense_seed": launches(dense_p, "seed_launches", name),
             "plane_dense_refresh": launches(dense_p, "refresh_launches", name),
+            "saga_plane_seed": launches(saga_plane, "seed_launches", name),
+            "saga_plane_refresh": launches(saga_plane, "refresh_launches", name),
         } for name in fold_kernels.LAUNCHES}
         kernels = []
         for kind, replaces in (("dense", "surge_tpu/replay/pallas_fold.py:86"),
                                ("ragged", "surge_tpu/replay/pallas_fold.py:170")):
             # the window's line: the plane's layout (counter, derived
-            # ordinal) at WINDOW_HEAD's shape, every case's error
+            # ordinal) at WINDOW_HEAD's shape, every case's error; each
+            # family's time at that shape
             rows = [r for r in windows["rows"] if r["kind"] == kind]
-            head = next(r for r in rows
-                        if r["case"] == f"counter/derived {WINDOW_HEAD[kind]}")
+            head = {model: next(r for r in rows
+                                if r["case"] == f"{layout} {WINDOW_HEAD[kind]}")
+                    for model, layout in MODEL_LAYOUTS.items()}
             kernels.append({
                 "name": f"{kind}_window",
                 "route": "cuda",
@@ -1430,15 +2082,27 @@ def main() -> int:
                 "launches": total_launches(paths[f"{kind}_window"]),
                 "launches_by_path": paths[f"{kind}_window"],
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
-                "ms": head["ms"], "plain_ms": head["plain_ms"],
-                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                "ms": head["counter"]["ms"], "plain_ms": head["counter"]["plain_ms"],
+                "bound_ms": head["counter"]["bound_ms"],
+                "bound_by": head["counter"]["bound_by"],
                 "library_ms": None,  # no PyTorch call folds a per-lane sequence
-                "timed_at": head["case"], "lanes_by_path": head["lanes_by_path"],
+                "timed_at": head["counter"]["case"],
+                "lanes_by_path": head["counter"]["lanes_by_path"],
+                "ms_by_model": {m: r["ms"] for m, r in head.items()},
+                "bound_ms_by_model": {m: r["bound_ms"] for m, r in head.items()},
+                "plain_ms_by_model": {m: r["plain_ms"] for m, r in head.items()},
+                "lanes_by_path_by_model": {m: r["lanes_by_path"]
+                                           for m, r in head.items()},
                 "ms_by_shape": {r["case"]: r["ms"] for r in rows if "ms" in r},
             })
         # the list fold's line: one cold replay's work lists on the bench
-        # plan (counter, derived ordinal, dense), both launches together
-        head = klist["rows"][0]
+        # plan (counter, derived ordinal, dense), both launches together;
+        # each family's at its phase-5 corpus
+        lists = {"counter": klist["rows"][0], **{
+            m: next(r for r in klist["rows"] if r["case"] == f"{m}/derived 1M"
+                    and r["source"] == "dense")
+            for m in ("shopping_cart", "saga")}}
+        head = lists["counter"]
         kernels.insert(1, {
             "name": "tile_fold_list",
             "route": "cuda",
@@ -1451,6 +2115,10 @@ def main() -> int:
             "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None,  # no PyTorch call folds a per-lane sequence
+            "ms_by_model": {m: r["ms"] for m, r in lists.items()},
+            "ms_per_launch_by_model": {m: r["ms_per_launch"] for m, r in lists.items()},
+            "bound_ms_by_model": {m: r["bound_ms"] for m, r in lists.items()},
+            "plain_ms_by_model": {m: r["plain_ms"] for m, r in lists.items()},
         })
         log(json.dumps({"kernels": kernels}))
     log(card)

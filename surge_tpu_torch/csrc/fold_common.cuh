@@ -30,10 +30,12 @@
 namespace surge_fold {
 
 constexpr int kThreads = 256;
-constexpr int kMaxCols = 8;
-constexpr int kMaxState = 8;
+// union columns and state fields a model may have (saga: 9 and 12)
+constexpr int kMaxCols = 12;
+constexpr int kMaxState = 12;
 // lanes per block of the two refresh-window kernels: 64 timed fastest of 64,
-// 128 and 256 at the plane's windows on an H100 (PERF.md, the kernel table)
+// 128 and 256 at the plane's windows on an H100 (PERF.md, Findings: the
+// block-size sweep)
 constexpr int kWindowLanes = 64;
 // rows a lane loads from device memory ahead of the dependent steps
 constexpr int kPrefetch = 8;
@@ -97,6 +99,84 @@ struct BankAccountStep {
       st[3] = ev[0];
     } else if (tid == 1) {  // EncodedUpdated: balance, only if created
       if (st[0] != 0u) st[3] = ev[1];
+    }
+  }
+};
+
+// shopping_cart (surge_tpu_torch/models/shopping_cart.py): columns
+// item_code, quantity, sequence_number, unit_price_cents; state item_count,
+// total_cents, checked_out (bool), version. quantity * unit_price_cents is
+// the u32 product, which wraps as the reference's int32 product does
+struct ShoppingCartStep {
+  static constexpr int kCols = 4;
+  static constexpr int kState = 4;
+  __device__ static void apply(uint32_t (&st)[kState], int tid,
+                               const uint32_t (&ev)[kCols]) {
+    if (tid == 0) {         // ItemAdded
+      st[0] = st[0] + ev[1];
+      st[1] = st[1] + ev[1] * ev[3];
+      st[3] = ev[2];
+    } else if (tid == 1) {  // ItemRemoved
+      st[0] = st[0] - ev[1];
+      st[1] = st[1] - ev[1] * ev[3];
+      st[3] = ev[2];
+    } else if (tid == 2) {  // CheckedOut
+      st[2] = 1u;
+      st[3] = ev[2];
+    }
+  }
+};
+
+// 1 << n as the reference's jnp.left_shift gives it for an int32 n: 0 for a
+// shift outside [0, 32) (a negative n is a large u32 here), where C++'s own
+// shift would be undefined
+__device__ __forceinline__ uint32_t shl1(uint32_t n) {
+  return n < 32u ? 1u << n : 0u;
+}
+
+// saga (surge_tpu_torch/saga/model.py): columns attempts, c0, c1, c2, c3,
+// def_id, num_steps, sequence_number, step; state def_id, num_steps, status,
+// step, committed, compensated, attempts, c0, c1, c2, c3, version. The
+// float32 context slots c0..c3 are copied as bit patterns
+struct SagaStep {
+  static constexpr int kCols = 9;
+  static constexpr int kState = 12;
+  // the status enum (surge_tpu_torch/saga/model.py)
+  enum : uint32_t {
+    kRunning = 0, kCompensating = 1, kCompleted = 2, kCompensated = 3,
+    kDeadLetter = 4
+  };
+  __device__ static void apply(uint32_t (&st)[kState], int tid,
+                               const uint32_t (&ev)[kCols]) {
+    if (tid == 0) {         // SagaStarted replaces the state
+      st[0] = ev[5];
+      st[1] = ev[6];
+      st[2] = kRunning;
+      st[3] = st[4] = st[5] = st[6] = 0u;
+      st[7] = ev[1];
+      st[8] = ev[2];
+      st[9] = ev[3];
+      st[10] = ev[4];
+      st[11] = ev[7];
+    } else if (tid == 1) {  // SagaStepCommitted
+      const uint32_t committed = st[4] | shl1(ev[8]);
+      st[2] = committed == shl1(st[1]) - 1u ? kCompleted : kRunning;
+      st[3] = ev[8] + 1u;
+      st[4] = committed;
+      st[6] = 0u;
+      st[11] = ev[7];
+    } else if (tid == 2) {  // SagaStepFailed
+      st[2] = st[4] == 0u ? kCompensated : kCompensating;
+      st[6] = ev[0];
+      st[11] = ev[7];
+    } else if (tid == 3) {  // SagaStepCompensated
+      const uint32_t compensated = st[5] | shl1(ev[8]);
+      st[2] = compensated == st[4] ? kCompensated : kCompensating;
+      st[5] = compensated;
+      st[11] = ev[7];
+    } else if (tid == 4) {  // SagaDeadLettered
+      st[2] = kDeadLetter;
+      st[11] = ev[7];
     }
   }
 };
@@ -290,14 +370,27 @@ __device__ __forceinline__ void fold_rows_global(const DecodeArgs& dec,
   }
 }
 
-// the step ids of the C interfaces, in the order of
-// fold_kernels.KERNEL_STEPS: 0 counter, 1 bank_account
-inline int step_shape(int step, int* n_cols, int* n_state) {
+// The step ids of the C interfaces, in the order of
+// fold_kernels.KERNEL_STEPS: 0 counter, 1 bank_account, 2 shopping_cart,
+// 3 saga. Returns f(Step{}) for the id's step functor, or
+// cudaErrorInvalidValue for an unknown id.
+template <class F>
+inline int with_step(int step, F&& f) {
   switch (step) {
-    case 0: *n_cols = CounterStep::kCols; *n_state = CounterStep::kState; return 0;
-    case 1: *n_cols = BankAccountStep::kCols; *n_state = BankAccountStep::kState; return 0;
+    case 0: return f(CounterStep{});
+    case 1: return f(BankAccountStep{});
+    case 2: return f(ShoppingCartStep{});
+    case 3: return f(SagaStep{});
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+inline int step_shape(int step, int* n_cols, int* n_state) {
+  return with_step(step, [&](auto s) {
+    *n_cols = decltype(s)::kCols;
+    *n_state = decltype(s)::kState;
+    return 0;
+  });
 }
 
 // the size of each mirrored struct (0 DecodeArgs, 1 StateArgs, 2 SlabArgs),

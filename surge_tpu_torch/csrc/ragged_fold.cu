@@ -231,8 +231,6 @@ int launch(const SlabArgs* sa, const DecodeArgs* dec, const uint8_t* words,
 
 }  // namespace surge_k2
 
-using surge_fold::BankAccountStep;
-using surge_fold::CounterStep;
 using surge_fold::DecodeArgs;
 using surge_fold::SlabArgs;
 
@@ -240,7 +238,7 @@ using surge_fold::SlabArgs;
 // keep external linkage
 extern "C" {
 
-// step ids, in the order of fold_kernels.KERNEL_STEPS: 0 counter, 1 bank_account
+// step ids, in the order of fold_kernels.KERNEL_STEPS (surge_fold::with_step)
 int surge_ragged_fold_shape(int step, int* n_cols, int* n_state) {
   return surge_fold::step_shape(step, n_cols, n_state);
 }
@@ -258,16 +256,10 @@ int surge_ragged_window(int step, const SlabArgs* sa, const DecodeArgs* dec,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (step) {
-    case 0:
-      return surge_k2::launch<CounterStep>(sa, dec, words, nbytes, width, rows,
-                                           paths, s);
-    case 1:
-      return surge_k2::launch<BankAccountStep>(sa, dec, words, nbytes, width,
-                                               rows, paths, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return surge_fold::with_step(step, [&](auto st) {
+    return surge_k2::launch<decltype(st)>(sa, dec, words, nbytes, width, rows,
+                                          paths, s);
+  });
 }
 
 }  // extern "C"

@@ -591,8 +591,6 @@ int launch_list(const ListArgs* la, const DecodeArgs* dec, const StateArgs* sa,
 
 }  // namespace surge_k1
 
-using surge_fold::BankAccountStep;
-using surge_fold::CounterStep;
 using surge_fold::DecodeArgs;
 using surge_fold::SlabArgs;
 using surge_fold::StateArgs;
@@ -602,7 +600,7 @@ using surge_k1::ListArgs;
 // keep external linkage
 extern "C" {
 
-// step ids, in the order of fold_kernels.KERNEL_STEPS: 0 counter, 1 bank_account
+// step ids, in the order of fold_kernels.KERNEL_STEPS (surge_fold::with_step)
 int surge_tile_scan_shape(int step, int* n_cols, int* n_state) {
   return surge_fold::step_shape(step, n_cols, n_state);
 }
@@ -620,16 +618,10 @@ int surge_dense_window(int step, const SlabArgs* sa, const DecodeArgs* dec,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (step) {
-    case 0:
-      return surge_k1::launch_window<CounterStep>(sa, dec, words, nbytes, width,
-                                                  paths, s);
-    case 1:
-      return surge_k1::launch_window<BankAccountStep>(sa, dec, words, nbytes,
-                                                      width, paths, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return surge_fold::with_step(step, [&](auto st) {
+    return surge_k1::launch_window<decltype(st)>(sa, dec, words, nbytes, width,
+                                                 paths, s);
+  });
 }
 
 // the size of ListArgs, so the ctypes mirror can be checked against it
@@ -643,14 +635,9 @@ int surge_tile_fold_list(int step, const ListArgs* la, const DecodeArgs* dec,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (step) {
-    case 0:
-      return surge_k1::launch_list<CounterStep>(la, dec, sa, s);
-    case 1:
-      return surge_k1::launch_list<BankAccountStep>(la, dec, sa, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return surge_fold::with_step(step, [&](auto st) {
+    return surge_k1::launch_list<decltype(st)>(la, dec, sa, s);
+  });
 }
 
 }  // extern "C"

@@ -43,12 +43,17 @@ class ReplaySpec:
       kernel (``surge_tpu_torch/csrc/tile_scan.cu``), e.g. ``"counter"``; None
       for a model the kernel does not carry, which then folds only through the
       plain scan (``surge.replay.tile-backend = xla``).
+    - ``associative``: an optional ``AssociativeFold``
+      (surge_tpu_torch.replay.seqpar) — with one, ``tile-backend = assoc``
+      folds each tile by lift + an order-preserving tree of combines + one
+      apply instead of a sequential time scan. Law-checked on first use.
     """
 
     registry: SchemaRegistry
     handlers: ReplayHandlers
     init_record: Dict[str, Any] = field(default_factory=dict)
     kernel_step: Optional[str] = None
+    associative: Any = None
 
     def init_state_tree(self) -> StateTree:
         """Scalar init record with schema-complete columns (missing fields → 0)."""

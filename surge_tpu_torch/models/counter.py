@@ -1,12 +1,17 @@
 """Counter bounded context, replay half — the counterpart of the tensor path of
 ``surge_tpu/models/counter.py``: the ``State`` and event dataclasses,
 ``make_registry`` (same wire bit widths, so an event packs into one byte when
-``sequence_number`` is derived) and ``make_replay_spec`` with torch handlers.
+``sequence_number`` is derived), ``make_replay_spec`` with torch handlers and
+``make_associative_fold``.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
+
+import numpy as np
+import torch
 
 from surge_tpu_torch.codec.schema import SchemaRegistry
 from surge_tpu_torch.engine.model import ReplayHandlers, ReplaySpec
@@ -83,4 +88,50 @@ def make_replay_spec() -> ReplaySpec:
                                  UNSERIALIZABLE: unserializable}),
         init_record={"count": 0, "version": 0},
         kernel_step="counter",
+        associative=make_associative_fold(),
     )
+
+
+@functools.cache
+def make_associative_fold():
+    """The counter fold as an associative transform monoid
+    (surge_tpu_torch.replay.seqpar). Summary = (d_count, has_version_event,
+    last_sequence_number): count is additive; version is the sequence number
+    of the LAST version-setting event (inc/dec/unserializable — NoOpEvent
+    leaves it). ``combine`` is associative but not commutative (right-biased
+    version). Repeated factory calls are structurally equal, sharing the
+    one-time law check."""
+    from surge_tpu_torch.replay.seqpar import AssociativeFold
+
+    def lift(ev):
+        tid = ev["type_id"]
+        inc = tid == INCREMENTED
+        dec = tid == DECREMENTED
+        sets_version = inc | dec | (tid == UNSERIALIZABLE)
+        d = (torch.where(inc, ev["increment_by"], 0)
+             - torch.where(dec, ev["decrement_by"], 0))
+        return {
+            "d_count": d.to(torch.int32),
+            "has": sets_version,
+            "last_seq": torch.where(sets_version, ev["sequence_number"],
+                                    0).to(torch.int32),
+        }
+
+    def combine(a, b):
+        return {
+            "d_count": a["d_count"] + b["d_count"],
+            "has": a["has"] | b["has"],
+            "last_seq": torch.where(b["has"], b["last_seq"], a["last_seq"]),
+        }
+
+    def apply(state, s):
+        return {
+            "count": (state["count"] + s["d_count"]).to(torch.int32),
+            "version": torch.where(s["has"], s["last_seq"],
+                                   state["version"]).to(torch.int32),
+        }
+
+    return AssociativeFold(
+        lift=lift, combine=combine, apply=apply,
+        identity={"d_count": np.int32(0), "has": np.bool_(False),
+                  "last_seq": np.int32(0)})

@@ -5,9 +5,10 @@ The counterpart of each reference function keeps its name:
 
 - :func:`make_step_fn` / :func:`make_batch_fold`: the one-event step over a lane
   batch (``switch`` or ``select`` dispatch) and the plain time scan over it.
-- :func:`_make_fold_body`, :func:`_make_densify`: the plain backend's
-  tile-interior fold and the dense layout's one-time tile gather. A tile
-  folds events ``[t_base, t_base + width)`` of lanes ``[i0, i0 + bs)``.
+- :func:`_make_fold_body`, :func:`_make_assoc_body`, :func:`_make_densify`:
+  the plain backend's tile-interior fold, the ``assoc`` backend's tree fold
+  and the dense layout's one-time tile gather. A tile folds events
+  ``[t_base, t_base + width)`` of lanes ``[i0, i0 + bs)``.
 - :class:`ReplayEngine`: ``pack_resident`` → ``upload_resident`` →
   ``warm_resident`` → ``replay_resident``, the cold-replay main path.
 
@@ -16,7 +17,9 @@ the kernel backend (``tile-backend = pallas``) folds each of the plan's two
 work lists into the state slab in place with one launch of K1's list fold
 (``surge_tpu_torch.replay.fold_kernels.tile_fold_list``); the plain backend
 (``xla``) walks the same lists tile by tile through the list fold's plain
-version (``fold_kernels.tile_fold_list_reference``) with its own time scan. A caller's ``init_carry`` is copied, never written to.
+version (``fold_kernels.tile_fold_list_reference``) with its own time scan,
+and the ``assoc`` backend walks them with its tree fold, in torch on the
+engine's device. A caller's ``init_carry`` is copied, never written to.
 """
 
 from __future__ import annotations
@@ -148,6 +151,42 @@ def _make_fold_body(spec: ReplaySpec, wire: WireFormat, width: int,
                                        tt < lens, ord_base, tt)
             carry = step(carry, events)
         return carry
+
+    return fold_body
+
+
+def _make_assoc_body(spec: ReplaySpec, wire: WireFormat, width: int):
+    """The ``assoc`` backend's tile-interior fold, with the plain backend's
+    signature: no time scan at all. It lifts every slot of the ``[width,
+    bs]`` tile at once, combines adjacent pairs over time ``log2(width)``
+    times (combine is associative but not commutative: adjacent pairs keep
+    the order), then applies the result once, as
+    ``surge_tpu/replay/engine.py:_make_fold_body`` does. The spec carries
+    an ``associative`` fold (``ReplayEngine.tile_backend`` checks it); this
+    raises for a width that is not a power of two and law-checks the fold
+    once (``seqpar.ensure_validated``)."""
+    from surge_tpu_torch.replay.seqpar import ensure_validated
+
+    afold = spec.associative
+    if width & (width - 1):
+        raise ValueError(
+            f"assoc tile backend needs a power-of-two time width, got {width}")
+    # a wrong combine must raise here, never silently corrupt a replay
+    ensure_validated(afold, spec)
+
+    def fold_body(carry, words, sides, lens, ord_base, t_base: int):
+        ts = (torch.arange(width, dtype=torch.int32, device=words.device)
+              + t_base)[:, None]
+        events = wire.decode_words(words, sides, ts < lens[None, :],
+                                   ord_base[None, :], ts)
+        s = afold.lift(events)  # padding (type_id -1) lifts to identity
+        w = width
+        while w > 1:
+            s = afold.combine({k: v[0::2] for k, v in s.items()},
+                              {k: v[1::2] for k, v in s.items()})
+            w //= 2
+        out = afold.apply(carry, {k: v[0] for k, v in s.items()})
+        return {k: out.get(k, carry[k]) for k in carry}
 
     return fold_body
 
@@ -363,11 +402,7 @@ class ReplayEngine:
             max(self.config.get_int("surge.replay.batch-size"), lane), lane)
         self._dispatch = self.config.get_str("surge.replay.dispatch", "switch")
         self._tile_backend = self.config.get_str("surge.replay.tile-backend", "auto")
-        if self._tile_backend == "assoc":
-            raise NotImplementedError(
-                "surge.replay.tile-backend = assoc is not ported yet "
-                "(ROADMAP.md, Queue 1: the assoc tile backend)")
-        if self._tile_backend not in ("auto", "xla", "pallas"):
+        if self._tile_backend not in ("auto", "xla", "pallas", "assoc"):
             raise ValueError(
                 f"unknown surge.replay.tile-backend "
                 f"{self._tile_backend!r} (auto|xla|pallas|assoc)")
@@ -398,7 +433,11 @@ class ReplayEngine:
         """The resolved tile backend: ``auto`` is the kernel (``pallas``) on
         CUDA and the plain scan (``xla``) on the CPU. The kernel needs the
         spec's ``kernel_step``; without one this raises rather than run the
-        plain scan on the card."""
+        plain scan on the card. An explicit ``assoc`` (the tree fold,
+        :func:`_make_assoc_body`) needs the spec's ``associative`` and
+        raises without one. Unlike the reference, ``auto`` never picks
+        ``assoc``: on an NVIDIA H100 80GB HBM3 at 700 W the tree fold (torch
+        eager ops) ran 75-320× slower than K1 (PERF.md)."""
         backend = self._tile_backend
         if backend == "auto":
             backend = "pallas" if self.device.type == "cuda" else "xla"
@@ -407,6 +446,11 @@ class ReplayEngine:
                 "the tile-scan kernel needs ReplaySpec.kernel_step, and this "
                 "spec has none; set surge.replay.tile-backend = xla to fold "
                 "with the plain scan")
+        if backend == "assoc" and self.spec.associative is None:
+            raise ValueError(
+                "surge.replay.tile-backend = assoc requires the ReplaySpec to "
+                "carry an AssociativeFold (spec.associative) — this model "
+                "only supports the sequential xla/pallas tile scan")
         return backend
 
     # -- resident-corpus path -----------------------------------------------------------
@@ -700,7 +744,8 @@ class ReplayEngine:
         scan. ``limit`` folds only the first tiles of each list (warm-up)."""
         key = frozenset(resident.derived_key.items())
         use_dense = self._use_dense(resident, plan)
-        kernel = self.tile_backend == "pallas"
+        backend = self.tile_backend
+        kernel = backend == "pallas"
         for bs, i0s, t_bases in ((plan.bs_big, plan.big_i0, plan.big_tb),
                                  (plan.bs_small, plan.small_i0, plan.small_tb)):
             k_n = len(i0s) if limit is None else min(limit, len(i0s))
@@ -723,12 +768,14 @@ class ReplayEngine:
                     width=plan.width, bs=bs, spec=self.spec, wire=wire,
                     starts=starts, k_n=k_n, schedule=schedule)
             else:
+                fold = (_make_assoc_body(self.spec, wire, plan.width)
+                        if backend == "assoc" else
+                        _make_fold_body(self.spec, wire, plan.width,
+                                        self._dispatch))
                 fold_kernels.tile_fold_list_reference(
                     slab, words, sides, resident.lens_dev, ord_d, i0s, t_bases,
                     width=plan.width, bs=bs, spec=self.spec, wire=wire,
-                    starts=starts, k_n=k_n,
-                    fold=_make_fold_body(self.spec, wire, plan.width,
-                                         self._dispatch))
+                    starts=starts, k_n=k_n, fold=fold)
 
     def _wire(self, key: frozenset) -> WireFormat:
         """The wire format for one derived-column declaration (one per engine,

@@ -55,6 +55,13 @@ KERNEL_STEPS: dict[str, tuple[tuple[str, ...], tuple[str, ...]]] = {
     "bank_account": (("created", "owner_code", "security_code_code", "balance"),
                      ("balance", "new_balance", "owner_code",
                       "security_code_code")),
+    "shopping_cart": (("item_count", "total_cents", "checked_out", "version"),
+                      ("item_code", "quantity", "sequence_number",
+                       "unit_price_cents")),
+    "saga": (("def_id", "num_steps", "status", "step", "committed",
+              "compensated", "attempts", "c0", "c1", "c2", "c3", "version"),
+             ("attempts", "c0", "c1", "c2", "c3", "def_id", "num_steps",
+              "sequence_number", "step")),
 }
 
 #: kernel launches per wrapper (reset by the caller; never by this module)
@@ -82,8 +89,9 @@ LIST_LANE_BLOCK = 256
 #: (``kNoopTileT`` in csrc/tile_scan.cu)
 _NOOP_TILE_T = np.int32(1 << 29)
 
-_MAX_COLS = 8
-_MAX_STATE = 8
+#: kMaxCols and kMaxState in csrc/fold_common.cuh
+_MAX_COLS = 12
+_MAX_STATE = 12
 _PACKED, _SIDE, _ORDINAL = 0, 1, 2
 _WORD, _BYTE = 0, 1
 _SIDE_DTYPES = (np.dtype(np.int32), np.dtype(np.float32))

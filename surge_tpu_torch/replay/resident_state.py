@@ -17,7 +17,9 @@ reads are answered by batched device gathers.
   fold through kernel K2 (``fold_kernels.ragged_window``) when the resolved
   tile backend is ``pallas`` (``auto`` on CUDA), window plans through K1's
   dense window (``fold_kernels.dense_window``) or, under an explicit
-  ``tile-backend = xla``, the plain window around the plain torch scan.
+  ``tile-backend = xla`` or ``assoc``, the plain window around the plain
+  torch scan (an ``assoc`` plane seeds through the engine's tree fold; its
+  windows take the plain arm, as the reference's do).
 - **In place, atomic per window.** Torch updates the slab in place (the
   reference's donated arm; ``surge.replay.donate-refresh = false`` folds into
   a copy published at the group's commit). One plane lock is held around the
@@ -1174,8 +1176,8 @@ class ResidentStatePlane(Controllable):
         """Executor half of one window: upload its inputs (the lane table,
         and the wire bytes once per plan or per window), then make ONE
         window call under the plane lock — K2's ragged window, K1's dense
-        window, or under ``tile-backend = xla`` the plain window around the
-        plain decode and scan."""
+        window, or under ``tile-backend = xla`` or ``assoc`` the plain
+        window around the plain decode and scan."""
         up = self._upload
         spec, wire = self.spec, self._wire
         if mode == "rag":

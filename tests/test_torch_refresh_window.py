@@ -13,8 +13,9 @@ the same numpy inputs, made from a seed, against:
   back, ``index_add_``).
 
 First and chained windows, with and without admission, padding lanes, and
-three layouts (counter with a derived and a side ordinal, bank_account with
-bool and f32 state). Plus the wrappers' own contract (CPU tensors run the
+five layouts (counter with a derived and a side ordinal, bank_account with
+bool and f32 state, shopping_cart with wrapping products and bool state,
+saga with seven side columns and twelve state fields). Plus the wrappers' own contract (CPU tensors run the
 plain version and count no launch; other devices and bad arguments raise),
 the lane table, the kernel-only path report, and, on a CUDA card only,
 each kernel against its plain version and the path it reports."""
@@ -27,12 +28,15 @@ import torch
 from surge_tpu.config import default_config
 from surge_tpu.models import bank_account as jbank
 from surge_tpu.models import counter as jcounter
+from surge_tpu.models import shopping_cart as jcart
 from surge_tpu.replay.resident_state import ResidentStatePlane as JPlane
+from surge_tpu.saga import model as jsaga
 from surge_tpu_torch.codec.wire import WireFormat
 from surge_tpu_torch.config import Config
-from surge_tpu_torch.models import bank_account, counter
+from surge_tpu_torch.models import bank_account, counter, shopping_cart
 from surge_tpu_torch.replay import fold_kernels
 from surge_tpu_torch.replay.resident_state import ResidentStatePlane
+from surge_tpu_torch.saga import model as saga
 from tests.test_resident_state import TOPIC, make_log
 
 MODELS = {
@@ -40,6 +44,10 @@ MODELS = {
                         {"sequence_number": "ordinal"}),
     "counter-side": (counter.make_replay_spec, jcounter.make_replay_spec, {}),
     "bank": (bank_account.make_replay_spec, jbank.make_replay_spec, {}),
+    "cart": (shopping_cart.make_replay_spec, jcart.make_replay_spec,
+             {"sequence_number": "ordinal"}),
+    "saga": (saga.make_replay_spec, jsaga.make_replay_spec,
+             {"sequence_number": "ordinal"}),
 }
 #: window -> (window offset t_base, whether the window admits)
 WINDOWS = {"first-admit": (0, True), "first": (0, False),

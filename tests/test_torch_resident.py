@@ -280,12 +280,21 @@ def test_fold_resident_slab_is_the_sorted_state(corpus):
     assert np.array_equal(count.astype(np.int64), c.expected_count[resident.perm])
 
 
-def test_tile_backend_resolution():
+def test_tile_backend_resolution(monkeypatch):
     spec = counter.make_replay_spec()
     assert ReplayEngine(spec, device="cpu").tile_backend == "xla"  # auto on CPU
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ReplayEngine(spec, Config(overrides={"surge.replay.tile-backend": "assoc"}),
-                     device="cpu")
+    assoc = ReplayEngine(spec, Config(overrides={"surge.replay.tile-backend": "assoc"}),
+                         device="cpu")
+    assert assoc.tile_backend == "assoc"
+    no_fold = ReplaySpec(spec.registry, spec.handlers, spec.init_record,
+                         kernel_step=spec.kernel_step)
+    with pytest.raises(ValueError, match="AssociativeFold"):
+        ReplayEngine(no_fold, Config(overrides={"surge.replay.tile-backend": "assoc"}),
+                     device="cpu").tile_backend
+    # auto stays the kernel on CUDA, even for a spec that ships a fold
+    on_card = ReplayEngine(spec, device="cpu")
+    monkeypatch.setattr(on_card, "device", torch.device("cuda"))
+    assert spec.associative is not None and on_card.tile_backend == "pallas"
     with pytest.raises(ValueError, match="unknown surge.replay.tile-backend"):
         ReplayEngine(spec, Config(overrides={"surge.replay.tile-backend": "triton"}),
                      device="cpu")

@@ -4,8 +4,10 @@ lockstep over ONE log: the same seed, then one ``_refresh_once`` on each after
 every append. After every step the two must agree exactly — tracked states,
 the ``audit_pull`` (row, ordinal) pairs as raw bytes, the resident set, the
 evictions, each round's dispatch buckets and the program signatures — in
-three arms: the port's plain K2 against the reference's bucketed Pallas arm,
-the plain scan on bucketed windows, and the plain K1 on dense windows.
+four arms: the port's plain K2 against the reference's bucketed Pallas arm,
+the plain scan on bucketed windows, the seed through the assoc tree fold (its
+windows take the plain arm, as the reference's do), and the plain K1 on dense
+windows.
 Scenarios follow tests/test_resident_state.py and
 tests/test_ragged_refresh.py."""
 
@@ -42,6 +44,8 @@ ARMS = {
                         {"surge.replay.tile-backend": "pallas",
                          "surge.replay.dispatch": "select"}),
     "xla-bucketed": ({"surge.replay.tile-backend": "xla"}, {}),
+    "assoc-bucketed": ({"surge.replay.tile-backend": "assoc"},
+                       {"surge.replay.tile-backend": "assoc"}),
     "pallas-dense": ({"surge.replay.tile-backend": "pallas",
                       "surge.replay.resident.refresh-dispatch": "dense"},
                      {"surge.replay.resident.refresh-dispatch": "dense"}),
