@@ -22,7 +22,11 @@ first. Phases:
    (dense) and, on cut corpora, both sources, the five layouts and the edges
    (bs_small 8; batches of 104, 256 and 2,000 lanes, whose tiles start and
    end inside a lane block, staged or loaded per lane; width 512), and on
-   phase 5's 1M carts and 1M sagas (dense);
+   phase 5's 1M carts and 1M sagas (dense); and K1 at the non-resident
+   windows (one-tile dense lists, ``NONRES_*``): every ladder width 8-256
+   and the 512 chunk at B-chunks of 8, 24 and 8,192 lanes, a mid-log
+   out-of-range type id and an ordinal base past 2^20 in every window, the
+   rows past the B-chunk untouched;
 2. the main path at full size: ``synth_counter_corpus(1M aggregates, 100M
    events)`` through ``ReplayEngine`` under the bench config (batch 8192,
    time-chunk 64, tile-backend auto), ``pack_resident`` → ``upload_resident``
@@ -55,6 +59,24 @@ first. Phases:
    their rests through K2 (one launch a window) while a reader holds every
    row it reads to its saga's state at that version; no fallback, no signal,
    and every saga read back byte-equal to a plain cold replay of the log;
+7. cold start from a columnar segment: the bench corpus written once as a
+   segment of 16 chunks of 65,536 aggregates, restored twice with
+   ``restore_from_segment`` into the in-memory store (wire cache cold, then
+   warm; each chunk K1's flat list fold); every stored state decoded and
+   held to the closed form; seconds per stage, K1's launches and device
+   time per chunk, peak host memory;
+8. ``restore_from_events`` over the port's InMemoryLog (8 partitions, the
+   plane's counter record): the in-memory route (~200k events, the tpu
+   store byte-equal to the cpu backend's), the checkpointed route (a
+   checkpoint at half of each log, then the tail) and the spilled route
+   (~1.05M events, through a throwaway segment), each against its closed
+   form;
+9. ``replay_resident_streamed`` on the 1M / 100M wire at 1, 4 and 8
+   segments in turns with ``upload_resident`` + ``replay_resident``, all
+   byte-equal, each arm's wall beside its upload and fold seconds;
+10. ``replay_columnar`` on 1M carts and on the counter corpus cut to 200k
+   aggregates / 20M events, against the walk or the closed form and, on a
+   subset, the plain eager scan; events/s, windows, K1 launches;
 then one JSON line of every kernel's numbers, the card line, and a last line
 ``{"ok": true, "device": {...}}``.
 
@@ -67,9 +89,11 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -750,6 +774,149 @@ def phase_list_kernel(bench_events) -> dict:
     return {"rows": rows}
 
 
+#: K1's non-resident windows (phase 1): the default engine's ladder
+#: (min-time-window 8, time-chunk 512: widths 8 to 256 and the 512 chunk) at
+#: B-chunks of 8, 24 and 8,192 lanes (bs = min(batch-size, round_up(b, 8)))
+#: for the counter with its ordinal derived; the other layouts at three
+#: widths and two chunks
+NONRES_WIDTHS = (8, 16, 32, 64, 128, 256, 512)
+NONRES_LANES = (8, 24, 8192)
+NONRES_OTHER = ((8, 64, 512), (24, 8192))
+#: the window the kernels line times for every family
+NONRES_HEAD = (512, 8192)
+
+
+def nonres_window(spec, wire, width: int, bs: int, rng):
+    """One window as ``ReplayEngine._fold_window`` packs it: ``bs - 3`` real
+    lanes (the rest pad), lengths in [0, width] (the first lane full), type
+    ids in range, every third lane with an out-of-range id mid-log, packed
+    fields inside their widths, random side values. Returns ``(type_ids [b,
+    width], packed, sides)``."""
+    b = bs - 3
+    tids = rng.integers(0, wire.num_types, size=(b, width)).astype(np.int32)
+    lens = rng.integers(0, width + 1, size=b)
+    lens[0] = width
+    tids[np.arange(width)[None, :] >= lens[:, None]] = -1
+    tids[::3, width // 2] = wire.num_types + 3
+    masks = {pf.name: pf.mask for pf in wire.packed_fields}
+    cols = {}
+    for f in spec.registry.union_columns():
+        if f.name in wire.derived:
+            continue
+        dt = np.dtype(f.dtype)
+        if f.name in masks:
+            cols[f.name] = rng.integers(0, masks[f.name] + 1, size=(b, width)).astype(dt)
+        elif dt == np.float32:
+            cols[f.name] = rng.standard_normal((b, width)).astype(dt)
+        else:
+            cols[f.name] = rng.integers(-(1 << 31), 1 << 31, size=(b, width),
+                                        dtype=np.int64).astype(dt)
+    packed, sides = wire.pack_window(tids, cols, 0, width, width, bs)
+    return tids, packed, sides
+
+
+def random_slab(spec, n: int, rng) -> dict:
+    """Random state columns ``{field: [n]}`` on the card (every bit pattern
+    of an int, bools, normal floats)."""
+    import torch
+
+    slab = {}
+    for f in spec.registry.state.fields:
+        dt = np.dtype(f.dtype)
+        if dt == np.bool_:
+            col = rng.integers(0, 2, size=n).astype(bool)
+        elif dt == np.float32:
+            col = rng.standard_normal(n).astype(np.float32)
+        else:
+            col = rng.integers(-(1 << 31), 1 << 31, size=n, dtype=np.int64).astype(np.int32)
+        slab[f.name] = torch.from_numpy(col).cuda()
+    return slab
+
+
+def check_nonres_case(label: str, spec, wire, width: int, bs: int, seed: int,
+                      timed: bool) -> dict:
+    """K1 on one non-resident window, the call ``ReplayEngine._fold_packed``
+    makes (a one-tile dense work list, lanes of ``window_lens``, the ordinal
+    base past 2^20), against its plain version on the same inputs, byte for
+    byte over every lane of the B-chunk. The carry lies in a longer buffer:
+    the rows past the chunk must keep their values."""
+    import torch
+
+    from surge_tpu_torch.replay import fold_kernels
+    from surge_tpu_torch.replay.engine import ReplayEngine, window_lens
+
+    rng = np.random.default_rng(seed)
+    eng = ReplayEngine(spec)
+    tids, packed, sides = nonres_window(spec, wire, width, bs, rng)
+    words = torch.from_numpy(packed).cuda()
+    side_d = {k: torch.from_numpy(v).cuda() for k, v in sides.items()}
+    ord_base = rng.integers(1 << 20, (1 << 20) + (1 << 24), size=bs).astype(np.int32)
+    guard = 64
+    full = random_slab(spec, bs + guard, rng)
+    start = {k: v.clone() for k, v in full.items()}
+    got = {k: v[:bs] for k, v in full.items()}
+    want = {k: v[:bs].clone() for k, v in full.items()}
+    eng._fold_packed(got, wire, words, side_d, ord_base, tids)
+    lens = window_lens(tids, wire.num_types, bs)
+    lens_d = torch.from_numpy(lens).cuda()
+    ord_d = torch.from_numpy(ord_base).cuda()
+    i0s, t_bases, schedule = eng._window_list(bs)
+    kw = dict(width=width, bs=bs, spec=spec, wire=wire)
+    t0 = time.perf_counter()
+    fold_kernels.tile_fold_list_reference(
+        want, words[None], {k: v[None] for k, v in side_d.items()}, lens_d, ord_d,
+        i0s, t_bases, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = 0.0
+    for name in want:
+        g, w = got[name].cpu().numpy(), want[name].cpu().numpy()
+        if g.tobytes() != w.tobytes():
+            raise AssertionError(
+                f"window {label}: field {name!r} differs from the plain version "
+                f"at lane {int(np.flatnonzero(g != w)[0])}")
+        if full[name][bs:].cpu().numpy().tobytes() != start[name][bs:].cpu().numpy().tobytes():
+            raise AssertionError(f"window {label}: K1 wrote past the B-chunk's "
+                                 f"{bs} lanes in {name!r}")
+        err = max(err, float(np.abs(g.astype(np.float64) - w.astype(np.float64)).max()))
+    steps = int(lens.sum())
+    state = sum(np.dtype(f.dtype).itemsize for f in spec.registry.state.fields)
+    side_b = sum(np.dtype(f.dtype).itemsize for f in wire.side_fields)
+    # the slots each lane folds, each touched lane's length, ordinal and
+    # carry in and out, the one-tile list and its schedule
+    nbytes = steps * (wire.nbytes + side_b) + bs * (8 + 2 * state) + 8 + 12
+    row = {"case": label, "width": width, "bs": bs, "valid_steps": steps,
+           "bytes": nbytes, "max_abs_err": err}
+    if timed:
+        tiles = (words[None], {k: v[None] for k, v in side_d.items()}, lens_d, ord_d,
+                 i0s, t_bases)
+        run = lambda: fold_kernels.tile_fold_list(got, *tiles, schedule=schedule, **kw)  # noqa: E731
+        bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops_ms = steps * 12 / INT32_OPS_PER_S * 1e3
+        row.update({"ms": device_ms(run, 7, 10), "ms_source": "events",
+                    "plain_ms": plain_ms,
+                    "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+                    "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms
+                    else "operations"})
+    log("phase1-nonres " + json.dumps(row))
+    return row
+
+
+def phase_nonres_windows() -> dict:
+    """K1 at every non-resident window shape the default engine gives, each
+    layout, against its plain version."""
+    rows = []
+    for i, (layout, spec, wire) in enumerate(kernel_cases()):
+        widths, lanes = ((NONRES_WIDTHS, NONRES_LANES) if layout == "counter/derived"
+                         else NONRES_OTHER)
+        for width in widths:
+            for bs in lanes:
+                rows.append(check_nonres_case(
+                    f"{layout} w{width} bs{bs}", spec, wire, width, bs,
+                    seed=1000 + i * 100 + width + bs, timed=bs == NONRES_HEAD[1]))
+    return {"rows": rows}
+
+
 # -- phase 2: the main path -----------------------------------------------------------
 
 
@@ -853,8 +1020,13 @@ def drive_main_path(corpus, layout: str, card: str) -> dict:
         "card": card, "layout": layout,
         "dense": eng._use_dense(resident, plan),
         "aggregates": corpus.num_aggregates, "events": corpus.num_events,
-        "events_per_s_best": corpus.num_events / min(folds),
-        "events_per_s_median": corpus.num_events / statistics.median(folds),
+        # bench.py's two clocks (bench.py:273-278,303): events_per_sec over
+        # pack + upload + warm (the dense gather) + the first fold;
+        # steady_events_per_sec over the best of three replays of the
+        # resident corpus (fold and pull)
+        "events_per_sec": corpus.num_events / ((t3 - t0) + folds[0]),
+        "steady_events_per_sec": corpus.num_events / min(folds[:3]),
+        "steady_events_per_sec_median": corpus.num_events / statistics.median(folds),
         "pack_s": t1 - t0, "upload_s": t2 - t1, "warm_s": t3 - t2,
         "fold_s": folds, "pad_ratio": res.padded_events / corpus.num_events,
         "tiles_per_replay": tiles, "lists_per_replay": n_lists,
@@ -1970,6 +2142,436 @@ def phase_saga_plane(card: str) -> dict:
     return row
 
 
+# -- phase 7: cold start from a columnar segment ------------------------------------
+
+#: the restore segment's chunking (the reference's default
+#: surge.replay.restore-chunk-aggregates): the bench corpus in 16 chunks
+RESTORE_CHUNK_AGGREGATES = 65_536
+
+
+def state_json(agg_id, state) -> bytes:
+    """The counter state as the reference's JSON state format writes it."""
+    return json.dumps({"aggregate_id": state.aggregate_id, "count": state.count,
+                       "version": state.version}).encode()
+
+
+def check_store(label: str, store, ids, count, version) -> None:
+    """Every stored state decoded and held to its closed form."""
+    items = dict(store.all_items())
+    if len(items) != len(ids):
+        raise AssertionError(f"{label}: {len(items)} states stored, not {len(ids)}")
+    got_c = np.empty(len(ids), dtype=np.int64)
+    got_v = np.empty(len(ids), dtype=np.int64)
+    for i, a in enumerate(ids):
+        st = json.loads(items[a])
+        if st["aggregate_id"] != a:
+            raise AssertionError(f"{label}: {a} stored as {st['aggregate_id']}")
+        got_c[i], got_v[i] = st["count"], st["version"]
+    if not (np.array_equal(got_c, count) and np.array_equal(got_v, version)):
+        bad = np.flatnonzero((got_c != count) | (got_v != version))[:5]
+        raise AssertionError(f"{label}: states off their closed form at {bad}")
+
+
+class RssSampler:
+    """The process's resident set at the start of the block and its peak,
+    sampled every 20 ms from ``/proc/self/statm`` while the block runs (None
+    where the file cannot be read), and ``getrusage``'s peak of the whole
+    process so far at its end (it cannot be reset)."""
+
+    def __enter__(self):
+        import os
+
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.start = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _rss(self):
+        try:
+            with open("/proc/self/statm") as f:
+                return int(f.read().split()[1]) * self.page
+        except (OSError, ValueError, IndexError):
+            return None
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            now = self._rss()
+            if now is not None and self.peak is not None:
+                self.peak = max(self.peak, now)
+
+    def __exit__(self, *exc):
+        import resource
+
+        self._stop.set()
+        self._thread.join()
+        self.process_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def phase_restore_segment(card: str, corpus, work: str) -> dict:
+    """The bench corpus written once as a segment of 16 chunks (8
+    partitions), restored with ``restore_from_segment`` into the in-memory
+    store twice (wire cache cold, then warm); every stored state decoded and
+    held to the closed form; each restore's stages, K1's launches, its
+    device time on every chunk and the peak host memory."""
+    import os
+
+    import torch
+
+    from surge_tpu_torch.config import Config
+    from surge_tpu_torch.log.columnar import (
+        ColumnarSegmentWriter,
+        read_segment,
+        segment_info,
+    )
+    from surge_tpu_torch.models import counter
+    from surge_tpu_torch.replay import fold_kernels
+    from surge_tpu_torch.replay.engine import ReplayEngine
+    from surge_tpu_torch.store import InMemoryKeyValueStore, restore_from_segment
+    from surge_tpu_torch.store.restore import _chunk_wire
+
+    path = os.path.join(work, "bench.scol")
+    ev = corpus.events
+    n = corpus.num_aggregates
+    ids = [f"a{i}" for i in range(n)]
+    t0 = time.perf_counter()
+    with ColumnarSegmentWriter(path, extra_header={"topic": "counter-events"}) as w:
+        for k, lo in enumerate(range(0, n, RESTORE_CHUNK_AGGREGATES)):
+            hi = min(lo + RESTORE_CHUNK_AGGREGATES, n)
+            chunk = ev.slice_aggregates(lo, hi)
+            chunk.aggregate_ids = ids[lo:hi]
+            w.append(chunk, partition=k % PLANE_PARTITIONS)
+    write_s = time.perf_counter() - t0
+    spec = counter.make_replay_spec()
+    cfg = Config()
+    out = {"card": card, "aggregates": n, "events": corpus.num_events,
+           "chunks": -(-n // RESTORE_CHUNK_AGGREGATES),
+           "segment_bytes": os.path.getsize(path), "write_s": write_s,
+           "source": "flat (oneshot chunks)", "restores": []}
+    for cache in ("cold", "warm"):
+        store = InMemoryKeyValueStore()
+        reset_launches()
+        with RssSampler() as rss:
+            t0 = time.perf_counter()
+            res = restore_from_segment(path, store, replay_spec=spec,
+                                       serialize_state=state_json, config=cfg)
+            wall = time.perf_counter() - t0
+        launches = dict(fold_kernels.LAUNCHES)
+        out[f"launches_{cache}"] = launches
+        if launches["tile_fold_list"] <= 0 or launches["dense_window"] or \
+                launches["ragged_window"]:
+            raise AssertionError(f"segment restore ({cache}): launches {launches}")
+        if (res.num_aggregates, res.num_events) != (n, corpus.num_events):
+            raise AssertionError(f"segment restore ({cache}): {res}")
+        t1 = time.perf_counter()
+        check_store(f"segment restore ({cache})", store, ids,
+                    corpus.expected_count, corpus.expected_version)
+        row = {"cache": cache, "wall_s": wall, "stages_s": res.stages,
+               "events_per_s": corpus.num_events / wall,
+               "k1_launches": launches["tile_fold_list"],
+               "rss_start_bytes": rss.start, "peak_rss_bytes": rss.peak,
+               "process_peak_rss_bytes": rss.process_peak,
+               "check_s": time.perf_counter() - t1}
+        out["restores"].append(row)
+        log("phase7 " + json.dumps(row))
+        del store
+    # K1's device time on every chunk as the restore folds it (flat,
+    # oneshot), from the cached wires; these launches are not the path's
+    eng = ReplayEngine(spec, config=cfg)
+    build_id = segment_info(path)["schema"]["extra"]["build_id"]
+    per_chunk = []
+    for chunk in read_segment(path):
+        resident = eng.upload_resident(_chunk_wire(eng, path, chunk,
+                                                   build_id=build_id))
+        resident.cache["oneshot"] = True
+        plan = eng._plan_for(resident)
+        slab, ord_d = eng._fresh_slab(resident.b_pad)
+        per_chunk.append(device_ms(lambda: eng._run_tiles(resident, plan, slab, ord_d),
+                                   5, 3))
+        del resident, slab
+    torch.cuda.empty_cache()
+    out["k1_device_ms_per_chunk"] = per_chunk
+    out["k1_device_ms"] = sum(per_chunk)
+    log("phase7 " + json.dumps({k: v for k, v in out.items() if k != "restores"}))
+    return out
+
+
+# -- phase 8: restore_from_events, its three routes ---------------------------------
+
+#: the in-memory route's log (~200k events) and the spilled route's (~1.05M,
+#: over the default 1M spill threshold); events per aggregate 1-9
+EVENTS_ROUTE_AGGREGATES = {"inmemory": 40_000, "spilled": 210_000}
+
+
+class Checkpoint:
+    """What restore_from_events reads of a checkpoint: per-partition
+    watermarks, each aggregate's serialized state and its partition."""
+
+    def __init__(self, watermarks: dict, states: dict, partitions: dict):
+        self.watermarks = watermarks
+        self.states = states
+        self.partitions = partitions
+
+    def partition_of(self, agg_id: str) -> int:
+        return self.partitions.get(agg_id, 0)
+
+
+def events_log(n: int, seed: int, split: bool = False):
+    """The plane phase's counter records on the port's InMemoryLog (8
+    partitions): aggregate i gets 1-9 increments of 1-3 in order. With
+    ``split``, only the first half of each log is appended and the rest is
+    returned to append later. Returns ``(log, ids, count, version, rest)``."""
+    from surge_tpu_torch.log import InMemoryLog, LogRecord, TopicSpec
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 10, size=n)
+    agg = np.repeat(np.arange(n), lens)
+    starts = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lens, out=starts[1:])
+    seq = np.arange(agg.size) - starts[agg] + 1
+    inc = rng.integers(1, 4, size=agg.size)
+    order = np.lexsort((agg, seq))  # aggregates interleaved, each in order
+    recs = np.zeros(agg.size, dtype=EVENT_RECORD)
+    recs["inc"], recs["seq"] = inc, seq
+    raw = recs.tobytes()
+    w = EVENT_RECORD.itemsize
+    ids = [f"a{i}" for i in range(n)]
+    log_ = InMemoryLog()
+    log_.create_topic(TopicSpec(PLANE_TOPIC, PLANE_PARTITIONS))
+    prod = log_.transactional_producer("chip-smoke-restore")
+    first = seq <= (lens[agg] + 1) // 2 if split else np.ones(agg.size, dtype=bool)
+
+    def append(mask):
+        prod.begin()
+        for j in order[mask[order]].tolist():
+            a = int(agg[j])
+            prod.send(LogRecord(topic=PLANE_TOPIC, key=ids[a],
+                                value=raw[j * w:(j + 1) * w],
+                                partition=a % PLANE_PARTITIONS))
+        prod.commit()
+
+    append(first)
+    count = np.bincount(agg, weights=inc, minlength=n).astype(np.int64)
+    return log_, ids, count, lens.astype(np.int64), (lambda: append(~first))
+
+
+def events_restore(log_, backend: str, **kw):
+    from surge_tpu_torch.config import Config
+    from surge_tpu_torch.models import counter
+    from surge_tpu_torch.store import InMemoryKeyValueStore, restore_from_events
+
+    store = InMemoryKeyValueStore()
+    t0 = time.perf_counter()
+    res = restore_from_events(
+        log_, PLANE_TOPIC, store, deserialize_event=deserialize_event,
+        serialize_state=state_json, model=counter.CounterModel(),
+        replay_spec=counter.make_replay_spec(),
+        config=Config(overrides={"surge.replay.backend": backend}), **kw)
+    return res, store, time.perf_counter() - t0
+
+
+def phase_restore_events(card: str) -> dict:
+    """restore_from_events over the port's InMemoryLog, each route's store
+    held to its closed form: in memory (~200k events; the tpu backend's
+    store byte-equal to the cpu backend's), checkpointed (a checkpoint at
+    half of each log, then the tail) and spilled (~1.05M events, over the
+    default threshold: through a throwaway segment)."""
+    from surge_tpu_torch.config import Config
+    from surge_tpu_torch.models import counter
+    from surge_tpu_torch.replay import fold_kernels
+
+    out = {"card": card, "routes": {}, "launches": {}}
+
+    def run(route, log_, backend, **kw):
+        reset_launches()
+        res, store, wall = events_restore(log_, backend, **kw)
+        launches = dict(fold_kernels.LAUNCHES)
+        if backend == "tpu":
+            out["launches"][route] = launches
+            if launches["tile_fold_list"] <= 0:
+                raise AssertionError(f"{route}: the tpu backend launched K1 no time")
+        row = {"backend": backend, "wall_s": wall, "events": res.num_events,
+               "aggregates": res.num_aggregates, "stages_s": res.stages,
+               "k1_launches": launches["tile_fold_list"]}
+        out["routes"].setdefault(route, []).append(row)
+        log(f"phase8 {route} " + json.dumps(row))
+        return res, store
+
+    t0 = time.perf_counter()
+    log_, ids, count, version, _ = events_log(EVENTS_ROUTE_AGGREGATES["inmemory"], 21)
+    out["inmemory_log_s"] = time.perf_counter() - t0
+    _, tpu_store = run("inmemory", log_, "tpu")
+    check_store("in-memory route", tpu_store, ids, count, version)
+    _, cpu_store = run("inmemory", log_, "cpu")
+    if list(tpu_store.all_items()) != list(cpu_store.all_items()):
+        raise AssertionError("in-memory route: the tpu store differs from the cpu store")
+
+    log_, ids, count, version, append_rest = events_log(
+        EVENTS_ROUTE_AGGREGATES["inmemory"], 22, split=True)
+    _, half = run("checkpoint_write", log_, "cpu")
+    ck = Checkpoint({p: log_.end_offset(PLANE_TOPIC, p) for p in range(PLANE_PARTITIONS)},
+                    dict(half.all_items()),
+                    {a: int(a[1:]) % PLANE_PARTITIONS for a in ids})
+    append_rest()
+    res, store = run("checkpointed", log_, "tpu", checkpoint=ck,
+                     deserialize_state=lambda raw: counter.State(**json.loads(raw)))
+    if res.num_events >= int(version.sum()) or res.num_events <= 0:
+        raise AssertionError(f"checkpointed route folded {res.num_events} events")
+    check_store("checkpointed route", store, ids, count, version)
+
+    t0 = time.perf_counter()
+    log_, ids, count, version, _ = events_log(EVENTS_ROUTE_AGGREGATES["spilled"], 23)
+    out["spilled_log_s"] = time.perf_counter() - t0
+    if int(version.sum()) <= Config().get_int("surge.replay.restore-spill-events"):
+        raise AssertionError("the spilled route's log does not cross the spill "
+                             "threshold")
+    res, store = run("spilled", log_, "tpu")
+    if "segment_build" not in res.stages:
+        raise AssertionError("the spilled route did not restore through a segment")
+    check_store("spilled route", store, ids, count, version)
+    return out
+
+
+# -- phase 9: replay_resident_streamed ----------------------------------------------
+
+STREAM_SEGMENTS = (1, 4, 8)
+
+
+def phase_streamed(card: str, corpus) -> dict:
+    """The 1M / 100M wire through ``replay_resident_streamed`` at 1, 4 and
+    8 segments and through ``upload_resident`` + ``replay_resident``, in
+    turns (plain, 1, 4, 8, 8, 4, 1, plain); every arm's states byte-equal to
+    the plain arm's and the closed form; each arm's wall beside its upload
+    and fold seconds."""
+    import torch
+
+    from surge_tpu_torch.config import Config
+    from surge_tpu_torch.models import counter
+    from surge_tpu_torch.replay import fold_kernels
+    from surge_tpu_torch.replay.engine import ReplayEngine
+
+    eng = ReplayEngine(counter.make_replay_spec(), config=Config(overrides=BENCH_CONFIG))
+    t0 = time.perf_counter()
+    wire = eng.pack_resident(corpus.events)
+    pack_s = time.perf_counter() - t0
+    eng.warm_resident(eng.upload_resident(wire))  # builds and loads the kernel
+    torch.cuda.empty_cache()
+    order = ["plain", *STREAM_SEGMENTS, *reversed(STREAM_SEGMENTS), "plain"]
+    rows, first, launches = [], None, {}
+    for arm in order:
+        torch.cuda.synchronize()
+        s0 = dict(eng.stats)
+        reset_launches()
+        t0 = time.perf_counter()
+        if arm == "plain":
+            resident = eng.upload_resident(wire)
+            t1 = time.perf_counter()
+            res = eng.replay_resident(resident)
+            del resident
+        else:
+            t1 = t0
+            res = eng.replay_resident_streamed(wire, segments=arm)
+        wall = time.perf_counter() - t0
+        launches[f"streamed_{arm}"] = dict(fold_kernels.LAUNCHES)
+        if fold_kernels.LAUNCHES["tile_fold_list"] <= 0:
+            raise AssertionError(f"streamed {arm}: K1 was launched no time")
+        same_states(f"streamed {arm} against the closed form", res.states,
+                    {"count": corpus.expected_count.astype(np.int32),
+                     "version": corpus.expected_version.astype(np.int32)})
+        first = first or res.states
+        same_states(f"streamed {arm} against the first arm", res.states, first)
+        row = {"arm": arm, "wall_s": wall,
+               "upload_s": (t1 - t0) if arm == "plain"
+               else eng.stats["h2d_s"] - s0["h2d_s"],
+               "fold_s": eng.stats["fold_s"] - s0["fold_s"],
+               "pull_s": eng.stats["pull_s"] - s0["pull_s"],
+               "k1_launches": fold_kernels.LAUNCHES["tile_fold_list"]}
+        rows.append(row)
+        log("phase9 " + json.dumps(row))
+        torch.cuda.empty_cache()
+    plain = [r for r in rows if r["arm"] == "plain"]
+    plain_total = statistics.median(r["wall_s"] for r in plain)
+    plain_upload = statistics.median(r["upload_s"] for r in plain)
+    summary = {"card": card, "pack_s": pack_s, "events": corpus.num_events,
+               "plain_wall_s": plain_total, "plain_upload_s": plain_upload,
+               "streamed": {str(sg): {
+                   "wall_s": [r["wall_s"] for r in rows if r["arm"] == sg],
+                   # the upload hid if the streamed wall undercut the plain
+                   # upload plus the plain replay
+                   "upload_hidden": statistics.median(
+                       r["wall_s"] for r in rows if r["arm"] == sg) < plain_total}
+                   for sg in STREAM_SEGMENTS},
+               "launches": launches}
+    log("phase9 " + json.dumps(summary))
+    return summary
+
+
+# -- phase 10: the non-resident paths -------------------------------------------------
+
+#: phase 10's counter corpus: the bench corpus's shape (lognormal lengths, ~100
+#: events an aggregate) cut to 200k aggregates / 20M events
+NONRES_COUNTER = (200_000, 20_000_000)
+#: aggregates the plain eager scan folds as a check (its speed is ~0.2-1 M
+#: events/s on the card)
+NONRES_PLAIN_SUBSET = {"counter": 8_192, "shopping_cart": 65_536}
+
+
+def phase_nonresident(card: str) -> dict:
+    """``replay_columnar`` on 1M carts and on the counter corpus cut to
+    200k aggregates / 20M events: states equal to the walk's or the closed
+    form, a subset also equal to the plain eager scan's (``xla``); events/s,
+    windows and K1 launches (one a window)."""
+    from surge_tpu_torch.config import Config
+    from surge_tpu_torch.models import counter, shopping_cart
+    from surge_tpu_torch.replay import fold_kernels
+    from surge_tpu_torch.replay.corpus import synth_counter_corpus
+    from surge_tpu_torch.replay.engine import ReplayEngine
+
+    out = {"card": card, "models": {}, "launches": {}}
+    c = synth_counter_corpus(*NONRES_COUNTER, seed=0)
+    carts, cart_expected = cart_walk(FAMILY_AGGREGATES, seed=11)
+    for model, mod, events, expected in (
+            ("counter", counter, c.events,
+             {"count": c.expected_count.astype(np.int32),
+              "version": c.expected_version.astype(np.int32)}),
+            ("shopping_cart", shopping_cart, carts, cart_expected)):
+        spec = mod.make_replay_spec()
+        eng = ReplayEngine(spec)
+        reset_launches()
+        t0 = time.perf_counter()
+        res = eng.replay_columnar(events)
+        wall = time.perf_counter() - t0
+        launches = dict(fold_kernels.LAUNCHES)
+        stats = dict(eng.stats)
+        out["launches"][f"nonresident_{model}"] = launches
+        if launches["tile_fold_list"] != stats["windows"] or not stats["windows"] or \
+                launches["dense_window"] or launches["ragged_window"]:
+            raise AssertionError(f"{model}: {launches} for {stats['windows']} windows")
+        same_states(f"non-resident {model} against the closed form", res.states,
+                    expected)
+        sub_n = NONRES_PLAIN_SUBSET[model]
+        sub = events.sorted_by_aggregate().slice_aggregates(0, sub_n)
+        plain = ReplayEngine(spec, config=Config(overrides={
+            "surge.replay.tile-backend": "xla", "surge.replay.dispatch": "select"}))
+        t1 = time.perf_counter()
+        want = plain.replay_columnar(sub).states
+        plain_s = time.perf_counter() - t1
+        got = eng.replay_columnar(sub).states
+        same_states(f"non-resident {model} against the plain scan", got, want)
+        row = {"events": res.num_events, "aggregates": res.num_aggregates,
+               "wall_s": wall, "events_per_s": res.num_events / wall,
+               "windows": stats["windows"], "k1_launches": launches["tile_fold_list"],
+               "pack_s": stats["pack_s"], "h2d_s": stats["h2d_s"],
+               "pad_ratio": res.padded_events / max(res.num_events, 1),
+               "plain_subset": {"aggregates": sub_n, "events": sub.num_events,
+                                "wall_s": plain_s,
+                                "events_per_s": sub.num_events / plain_s}}
+        out["models"][model] = row
+        log(f"phase10 {model} " + json.dumps(row))
+    return out
+
+
 def total_launches(paths: dict) -> int | None:
     """The launches of the paths that ran in this call; None if none ran."""
     ran = [n for n in paths.values() if n is not None]
@@ -1978,7 +2580,7 @@ def total_launches(paths: dict) -> int | None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -1991,7 +2593,6 @@ def main() -> int:
 
     from surge_tpu_torch import _build
     from surge_tpu_torch.replay import fold_kernels
-    from surge_tpu_torch.replay.corpus import synth_counter_corpus
 
     card = card_line()
     log(f"phase0 card: {card}")
@@ -2001,25 +2602,66 @@ def main() -> int:
         log(_build.library_path(name).with_suffix(".log").read_text().strip())
     fold_kernels.load()
 
+    work = tempfile.mkdtemp(prefix="chip-smoke-")
+    try:
+        return run_phases(phases, card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_phases(phases: set, card: str, work: str) -> int:
+    import torch
+
+    from surge_tpu_torch.replay import fold_kernels
+    from surge_tpu_torch.replay.corpus import synth_counter_corpus
+
+    phase_s: dict = {}
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
+
     corpus = None
-    if phases & {1, 2, 5}:
-        t0 = time.perf_counter()
+    if phases & {1, 2, 5, 7, 9}:
         corpus = synth_counter_corpus(1_000_000, 100_000_000, seed=0)
-        log(f"phase1 corpus_s: {time.perf_counter() - t0:.3f}")
-    windows = klist = None
+        lap("corpus")
+    windows = klist = nonres = None
     if 1 in phases:
         windows = phase_windows()
         klist = phase_list_kernel(corpus.events)
+        nonres = phase_nonres_windows()
+        lap("1")
     main_rows = []
     if 2 in phases:
         main_rows.append(drive_main_path(corpus, "auto", card))
         main_rows.append(drive_main_path(corpus, "flat", card))
+        lap("2")
     families = None
     if 5 in phases:
         families = phase_families(card, corpus)
+        lap("5")
+    streamed = None
+    if 9 in phases:
+        streamed = phase_streamed(card, corpus)
+        lap("9")
+    seg_restore = None
+    if 7 in phases:
+        seg_restore = phase_restore_segment(card, corpus, work)
+        lap("7")
     del corpus
     if 3 in phases:
         phase_resume_and_bank(card)
+        lap("3")
+    ev_restore = None
+    if 8 in phases:
+        ev_restore = phase_restore_events(card)
+        lap("8")
+    nonres_paths = None
+    if 10 in phases:
+        nonres_paths = phase_nonresident(card)
+        lap("10")
     checked = ({(r["layout"], r["kind"], r["lanes"], r["width"],
                  r["rows"] if r["kind"] == "ragged" else 0)
                 for r in windows["rows"]} if windows is not None else set())
@@ -2037,6 +2679,9 @@ def main() -> int:
             {"ragged": saga_plane["window_shapes"]}, checked, "saga/derived")
     if windows is not None:
         windows["rows"].extend(plane_rows)
+    if phases & {4, 6}:
+        lap("4,6")
+    log("phase_s " + json.dumps(phase_s))
 
     if windows is not None:
         # launches on each main path, read right after that path ran with
@@ -2062,6 +2707,21 @@ def main() -> int:
             "plane_dense_refresh": launches(dense_p, "refresh_launches", name),
             "saga_plane_seed": launches(saga_plane, "seed_launches", name),
             "saga_plane_refresh": launches(saga_plane, "refresh_launches", name),
+            # this slice's paths: the segment restore (wire cache cold and
+            # warm), restore_from_events' routes, the streamed replay at each
+            # segment count and the non-resident replays
+            **{f"restore_segment_{c}": (seg_restore[f"launches_{c}"][name]
+                                        if seg_restore else None)
+               for c in ("cold", "warm")},
+            **{f"restore_events_{r}": (ev_restore["launches"][r][name]
+                                       if ev_restore else None)
+               for r in ("inmemory", "checkpointed", "spilled")},
+            **{f"streamed_{sg}": (streamed["launches"][f"streamed_{sg}"][name]
+                                  if streamed else None)
+               for sg in STREAM_SEGMENTS},
+            **{f"nonresident_{m}": (nonres_paths["launches"][f"nonresident_{m}"][name]
+                                    if nonres_paths else None)
+               for m in ("counter", "shopping_cart")},
         } for name in fold_kernels.LAUNCHES}
         kernels = []
         for kind, replaces in (("dense", "surge_tpu/replay/pallas_fold.py:86"),
@@ -2103,6 +2763,9 @@ def main() -> int:
                     and r["source"] == "dense")
             for m in ("shopping_cart", "saga")}}
         head = lists["counter"]
+        head_nonres = {m: next(r for r in nonres["rows"] if r["case"] ==
+                               f"{layout} w{NONRES_HEAD[0]} bs{NONRES_HEAD[1]}")
+                       for m, layout in MODEL_LAYOUTS.items()}
         kernels.insert(1, {
             "name": "tile_fold_list",
             "route": "cuda",
@@ -2110,7 +2773,7 @@ def main() -> int:
             "replaces": "surge_tpu/replay/pallas_fold.py:86",
             "launches": total_launches(paths["tile_fold_list"]),
             "launches_by_path": paths["tile_fold_list"],
-            "max_abs_err": max(r["max_abs_err"] for r in klist["rows"]),
+            "max_abs_err": max(r["max_abs_err"] for r in klist["rows"] + nonres["rows"]),
             "ms": head["ms"], "ms_per_launch": head["ms_per_launch"],
             "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -2119,6 +2782,18 @@ def main() -> int:
             "ms_per_launch_by_model": {m: r["ms_per_launch"] for m, r in lists.items()},
             "bound_ms_by_model": {m: r["bound_ms"] for m, r in lists.items()},
             "plain_ms_by_model": {m: r["plain_ms"] for m, r in lists.items()},
+            # the non-resident windows (one launch a window, a one-tile
+            # dense list): each family at NONRES_HEAD, every timed shape
+            "window_max_abs_err": max(r["max_abs_err"] for r in nonres["rows"]),
+            "window_ms_by_model": {m: head_nonres[m]["ms"] for m in head_nonres},
+            "window_bound_ms_by_model": {m: head_nonres[m]["bound_ms"]
+                                         for m in head_nonres},
+            "window_plain_ms_by_model": {m: head_nonres[m]["plain_ms"]
+                                         for m in head_nonres},
+            "window_ms_by_shape": {r["case"]: r["ms"] for r in nonres["rows"]
+                                   if "ms" in r},
+            "window_bound_ms_by_shape": {r["case"]: r["bound_ms"]
+                                         for r in nonres["rows"] if "ms" in r},
         })
         log(json.dumps({"kernels": kernels}))
     log(card)

@@ -1,7 +1,7 @@
 """Struct-of-arrays encoding of per-aggregate event logs — a copy of the parts of
 ``surge_tpu/codec/tensor.py`` the replay slice uses (``EncodedEvents``,
 ``ColumnarEvents``, ``encode_events_columnar``, ``columnar_to_batch``,
-``encode_events``, ``encode_states``, ``decode_states``).
+``encode_events``, ``encode_states``, ``decode_states``, ``bucket_lengths``).
 
 ``ColumnarEvents`` is the storage layout: N events across B aggregates, time-ordered
 within each aggregate, one flat array per union column. Encoding is pure NumPy on the
@@ -94,6 +94,19 @@ class ColumnarEvents:
             cols={k: v[order] for k, v in self.cols.items()},
             derived_cols=dict(self.derived_cols),
             aggregate_ids=self.aggregate_ids)
+
+    def slice_aggregates(self, start: int, stop: int) -> "ColumnarEvents":
+        """Sub-log for aggregates [start, stop). Requires aggregate-sorted order
+        (see :meth:`sorted_by_aggregate`); re-indexes agg_idx to 0..(stop-start)."""
+        lo, hi = np.searchsorted(self.agg_idx, (start, stop))
+        return ColumnarEvents(
+            num_aggregates=stop - start,
+            agg_idx=self.agg_idx[lo:hi] - np.int32(start),
+            type_ids=self.type_ids[lo:hi],
+            cols={k: v[lo:hi] for k, v in self.cols.items()},
+            derived_cols=dict(self.derived_cols),
+            aggregate_ids=(None if self.aggregate_ids is None
+                           else self.aggregate_ids[start:stop]))
 
 
 def encode_events_columnar(registry: SchemaRegistry,
@@ -193,3 +206,22 @@ def decode_states(schema: StateSchema, tree: Mapping[str, np.ndarray]) -> list[A
     arrays = {f.name: np.asarray(tree[f.name]) for f in schema.fields}
     b = len(next(iter(arrays.values()))) if arrays else 0
     return [schema.from_record({n: a[i] for n, a in arrays.items()}) for i in range(b)]
+
+
+def bucket_lengths(lengths: Sequence[int], buckets: Sequence[int]) -> dict[int, list[int]]:
+    """Group aggregate indices into padded-length buckets (ragged batching).
+
+    Returns {bucket_cap: [indices]} where each log fits its bucket. Logs longer than the
+    largest bucket go into a final bucket rounded up to the next multiple of it.
+    """
+    if not buckets:
+        raise ValueError("need at least one bucket size")
+    caps = sorted(buckets)
+    groups: dict[int, list[int]] = {}
+    for idx, ln in enumerate(lengths):
+        cap = next((c for c in caps if ln <= c), None)
+        if cap is None:
+            biggest = caps[-1]
+            cap = ((ln + biggest - 1) // biggest) * biggest
+        groups.setdefault(cap, []).append(idx)
+    return groups

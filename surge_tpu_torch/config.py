@@ -18,9 +18,12 @@ def _env_key(key: str) -> str:
     return key.upper().replace(".", "_").replace("-", "_")
 
 
-#: the ``surge.replay.*`` keys the resident replay path and the resident
-#: state plane read, with the reference's defaults (surge_tpu/config)
+#: the ``surge.replay.*`` keys the replay engine, the store restore and the
+#: resident state plane read, with the reference's defaults (surge_tpu/config)
 DEFAULTS: dict[str, Any] = {
+    # restore_from_events: "tpu" folds through the batched engine (on the
+    # engine's device), "cpu" runs the scalar per-aggregate fold
+    "surge.replay.backend": "tpu",  # tpu | cpu
     "surge.replay.batch-size": 8192,  # aggregates per device step
     "surge.replay.time-chunk": 512,  # events scanned per tile
     # tail windows shrink through a power-of-two ladder down to this width
@@ -30,6 +33,8 @@ DEFAULTS: dict[str, Any] = {
     "surge.replay.resident-slab-cap-mb": 512,
     # order aggregates by log length (descending) when packing the wire
     "surge.replay.sort-by-length": True,
+    # replay_ragged's padded-length buckets
+    "surge.replay.length-buckets": "64,256,1024,4096",
     # plain-scan step dispatch: "switch" applies each handler to the lanes
     # that carry its type, "select" runs every handler and mask-combines
     "surge.replay.dispatch": "switch",  # switch | select
@@ -44,6 +49,21 @@ DEFAULTS: dict[str, Any] = {
     # pad resident buffers to power-of-two lengths ("pow2") or keep exact
     # lengths ("exact")
     "surge.replay.resident-len-bucket": "pow2",  # pow2 | exact
+    # replay_resident_streamed's default piece count (0/1: one upload, then
+    # the replay)
+    "surge.replay.upload-stream-segments": 0,
+    # --- the store restore (store/restore.py) ---
+    # restore_from_segment: fold each chunk through the resident path, or
+    # stream its windows through replay_columnar
+    "surge.replay.segment-backend": "resident",  # resident | streaming
+    # cache each chunk's packed wire beside the segment for later restores
+    "surge.replay.segment-wire-cache": True,
+    # restore_from_events above this many records spills: the tpu backend
+    # through a throwaway columnar segment, the cpu backend in key-hash-range
+    # passes
+    "surge.replay.restore-spill-events": 1_000_000,
+    # aggregates per chunk of that throwaway segment
+    "surge.replay.restore-chunk-aggregates": 65536,
     # --- the resident state plane (replay/resident_state.py) ---
     # update the slab in place through every refresh window (true) or fold
     # into a copy published at the group's commit (false)

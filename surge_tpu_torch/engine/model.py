@@ -1,5 +1,5 @@
-"""The replay contract of a model family — the counterpart of ``ReplayHandlers`` and
-``ReplaySpec`` in ``surge_tpu/engine/model.py``.
+"""The replay contract of a model family — the counterpart of ``ReplayHandlers``,
+``ReplaySpec`` and ``fold_events`` in ``surge_tpu/engine/model.py``.
 
 Handlers are torch functions over lane batches: ``handler(state {field: [B]},
 fields {column: [B]}) -> {field: value}``. A handler may return a partial dict
@@ -10,7 +10,7 @@ the batch); the step function pins every result to the schema dtype.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -18,6 +18,26 @@ from surge_tpu_torch.codec.schema import SchemaRegistry
 
 StateTree = Dict[str, Any]
 TorchEventHandler = Callable[[StateTree, Mapping[str, Any]], StateTree]
+
+
+def fold_events(model: Any, state: Any, events: Sequence[Any]) -> Any:
+    """The scalar fold: ``model.handle_event`` over the events in order, or
+    a synchronous batch ``handle_events``. A model with neither (an
+    async-only model) cannot fold offline and raises."""
+    import inspect
+
+    handle_event = getattr(model, "handle_event", None)
+    if handle_event is not None:
+        for ev in events:
+            state = handle_event(state, ev)
+        return state
+    batch = getattr(model, "handle_events", None)
+    if batch is not None and not inspect.iscoroutinefunction(batch):
+        return batch(state, list(events))
+    raise TypeError(
+        f"{type(model).__name__} has no synchronous fold (handle_event or "
+        f"non-async handle_events) — offline replay/restore is unavailable for "
+        f"async-only models")
 
 
 @dataclass(frozen=True)

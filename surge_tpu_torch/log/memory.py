@@ -1,7 +1,7 @@
 """Deterministic in-process log — a copy of the parts of
 ``surge_tpu/log/memory.py`` the resident state plane and ``chip_smoke.py`` use:
 topics, the transactional producer (``begin``/``send``/``commit``), ``read``,
-``end_offset`` and the ``wait_for_append`` wakeup. Offsets are assigned at
+``end_offset``, ``latest_by_key`` and the ``wait_for_append`` wakeup. Offsets are assigned at
 commit time under one lock, so a transaction's records become visible
 atomically. Replication, compaction, digests and fencing of stale producers
 beyond the epoch check are not carried."""
@@ -121,6 +121,19 @@ class InMemoryLog:
         with self._lock:
             self.topic(topic)
             return self._ends[(topic, partition)]
+
+    def latest_by_key(self, topic: str, partition: int,
+                      isolation: str = "read_committed") -> Dict[str, LogRecord]:
+        """The newest record of each key (a tombstone drops the key)."""
+        out: Dict[str, LogRecord] = {}
+        for r in self.read(topic, partition, isolation=isolation):
+            if r.key is None:
+                continue
+            if r.value is None:
+                out.pop(r.key, None)
+            else:
+                out[r.key] = r
+        return out
 
     async def wait_for_append(self, topic: str, partition: int,
                               after_offset: int) -> None:

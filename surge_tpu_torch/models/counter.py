@@ -2,7 +2,8 @@
 ``surge_tpu/models/counter.py``: the ``State`` and event dataclasses,
 ``make_registry`` (same wire bit widths, so an event packs into one byte when
 ``sequence_number`` is derived), ``make_replay_spec`` with torch handlers and
-``make_associative_fold``.
+``make_associative_fold``; and :class:`CounterModel`, the scalar fold the
+``cpu`` restore backend runs.
 """
 
 from __future__ import annotations
@@ -52,6 +53,29 @@ class UnserializableEvent:
 
 
 INCREMENTED, DECREMENTED, NOOP, UNSERIALIZABLE = 0, 1, 2, 3
+
+
+class CounterModel:
+    """The scalar event fold (``handle_event``) of the reference's
+    ``CounterModel``, over the events this module carries."""
+
+    def initial_state(self, aggregate_id: str):
+        return None
+
+    def handle_event(self, state, event):
+        current = state if state is not None else State(event.aggregate_id, 0, 0)
+        if isinstance(event, CountIncremented):
+            return State(current.aggregate_id,
+                         current.count + event.increment_by, event.sequence_number)
+        if isinstance(event, CountDecremented):
+            return State(current.aggregate_id,
+                         current.count - event.decrement_by, event.sequence_number)
+        if isinstance(event, UnserializableEvent):
+            return State(current.aggregate_id, current.count, event.sequence_number)
+        return current  # NoOpEvent
+
+    def replay_spec(self):
+        return make_replay_spec()
 
 
 def make_registry() -> SchemaRegistry:

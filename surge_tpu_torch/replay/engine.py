@@ -10,7 +10,13 @@ The counterpart of each reference function keeps its name:
   and the dense layout's one-time tile gather. A tile folds events
   ``[t_base, t_base + width)`` of lanes ``[i0, i0 + bs)``.
 - :class:`ReplayEngine`: ``pack_resident`` → ``upload_resident`` →
-  ``warm_resident`` → ``replay_resident``, the cold-replay main path.
+  ``warm_resident`` → ``replay_resident``, the cold-replay main path;
+  ``replay_resident_streamed``, the same in lane pieces whose uploads overlap
+  the folds of earlier pieces; and the non-resident paths
+  (``replay_encoded``, ``replay_columnar``, ``replay_ragged``,
+  ``replay_columnar_chunks``, ``replay_stream``), which pack each
+  ``[width, bs]`` time window of a B-chunk on the host and fold it into the
+  chunk's carry.
 
 Where the reference ran one ``fori_loop`` over a device-resident work list,
 the kernel backend (``tile-backend = pallas``) folds each of the plan's two
@@ -19,19 +25,29 @@ work lists into the state slab in place with one launch of K1's list fold
 (``xla``) walks the same lists tile by tile through the list fold's plain
 version (``fold_kernels.tile_fold_list_reference``) with its own time scan,
 and the ``assoc`` backend walks them with its tree fold, in torch on the
-engine's device. A caller's ``init_carry`` is copied, never written to.
+engine's device. A non-resident window goes the same three ways: through K1
+as a one-tile dense work list (``fold_kernels.tile_fold_list``), through the
+tree fold, or through the plain time scan (:func:`make_batch_fold`). A
+caller's ``init_carry`` is copied, never written to.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field as dc_field
-from typing import Any, Callable, Mapping, Optional
+from typing import Any, Callable, Iterable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
-from surge_tpu_torch.codec.tensor import ColumnarEvents
+from surge_tpu_torch.codec.tensor import (
+    ColumnarEvents,
+    EncodedEvents,
+    bucket_lengths,
+    columnar_to_batch,
+    encode_events,
+    encode_states,
+)
 from surge_tpu_torch.codec.wire import WireFormat, torch_dtype
 from surge_tpu_torch.config import Config, default_config
 from surge_tpu_torch.engine.model import ReplaySpec, StateTree
@@ -231,6 +247,32 @@ def _apply_perm(perm: Optional[np.ndarray],
     return init_sorted, ord_sorted
 
 
+def _unapply_perm(perm: Optional[np.ndarray],
+                  out_sorted: dict) -> dict:
+    """Scatter sorted-order state columns back to the original order."""
+    if perm is None:
+        return out_sorted
+    out = {name: np.empty_like(col) for name, col in out_sorted.items()}
+    for name, col in out_sorted.items():
+        out[name][perm] = col
+    return out
+
+
+def window_lens(type_ids: np.ndarray, num_types: int, bs: int) -> np.ndarray:
+    """The lane lengths K1 folds one packed window with, int32 ``[bs]``:
+    lane b's slots up to its last type id in ``[0, num_types)`` (0 for a
+    lane with none and for the padding lanes past ``type_ids``' ``[b, w]``).
+    The slots past it pack to the pad code and fold to nothing; an
+    out-of-range id before it packs to the pad code too and decodes to a
+    no-op step, so the lane folds what the reference's window folds."""
+    lens = np.zeros((bs,), dtype=np.int32)
+    real = (type_ids >= 0) & (type_ids < num_types)
+    if real.size:
+        last = real.shape[1] - np.argmax(real[:, ::-1], axis=1)
+        lens[: real.shape[0]] = np.where(real.any(axis=1), last, 0)
+    return lens
+
+
 def _bucket_len(n: int) -> int:
     """Next power of two ≥ n (min 64Ki) — the bucketed buffer length."""
     target = 1 << 16
@@ -260,9 +302,16 @@ def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m if m > 0 else n
 
 
-def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array (possibly a read-only mmap) to a device tensor."""
-    return torch.from_numpy(np.require(arr, requirements=["C", "W"])).to(device)
+def _to_device(arr: np.ndarray, device: torch.device,
+               stream: Optional["torch.cuda.Stream"] = None) -> torch.Tensor:
+    """Host array (possibly a read-only mmap) to a device tensor. With a
+    ``stream`` (CUDA), the array is staged in pinned host memory and copied
+    on that stream without blocking the host."""
+    host = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
+    if stream is None:
+        return host.to(device)
+    with torch.cuda.stream(stream):
+        return host.pin_memory().to(device, non_blocking=True)
 
 
 def _sync(device: torch.device) -> None:
@@ -376,6 +425,9 @@ class ReplayResult:
     num_aggregates: int
     num_events: int
     padded_events: int  # slots actually scanned (padding overhead indicator)
+    # aggregate-id strings aligned with the state columns, when the inputs carried
+    # them (segment chunks) — lets callers write states back to the keyed store
+    aggregate_ids: Optional[list] = None
 
 
 class ReplayEngine:
@@ -413,20 +465,63 @@ class ReplayEngine:
                 f"unknown surge.replay.resident-layout "
                 f"{self._resident_layout!r} (auto|flat|dense)")
         self._dense_cap_mb = self.config.get_int("surge.replay.dense-cap-mb", 2048)
+        self.buckets = self.config.get_int_list("surge.replay.length-buckets",
+                                                "64,256,1024,4096")
         # the wire format per derived key
         self._wires: dict = {}
+        # distinct (derived key, window shape) signatures the non-resident
+        # windows dispatched: the reference compiles one program per entry
+        self._signatures: set = set()
+        # per-bs device constants of the one-tile window work list
+        self._window_lists: dict = {}
         # host-side phase accounting: seconds spent packing, uploading and
-        # densifying, and tiles dispatched
+        # densifying, tiles and windows dispatched, and a resident replay's
+        # fold (dispatch to the device's finish) and state pull
         self.stats = {"pack_s": 0.0, "h2d_s": 0.0, "windows": 0,
-                      "densify_s": 0.0}
+                      "densify_s": 0.0, "fold_s": 0.0, "pull_s": 0.0}
 
     # -- helpers ------------------------------------------------------------------------
+
+    def num_compiles(self) -> int:
+        """The distinct window signatures (derived key, packed shape, side
+        shapes) the non-resident paths dispatched: the reference compiles one
+        program for each, and its tests count them."""
+        return len(self._signatures)
 
     def init_carry_np(self, batch: int) -> dict[str, np.ndarray]:
         """Host-side initial carry columns ``{name: [batch]}``."""
         init = self.spec.init_state_tree()
         return {k: np.broadcast_to(np.asarray(v), (batch,)).copy()
                 for k, v in init.items()}
+
+    def init_carry(self, batch: int) -> dict[str, torch.Tensor]:
+        """The initial carry ``{name: [batch]}`` on the engine's device."""
+        return self._device_carry(self.init_carry_np(batch))
+
+    def _device_carry(self, carry: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+        """Host carry columns on the device. The folds write their carry in
+        place, and on the CPU the tensors share the arrays' memory, so
+        callers pass buffers of their own, never a caller's."""
+        return {k: _to_device(v, self.device) for k, v in carry.items()}
+
+    def carry_from_states(self, states: Sequence[Any]) -> dict[str, np.ndarray]:
+        """Resume from snapshots: the host carry columns of scalar states."""
+        return encode_states(self.spec.registry.state, states)
+
+    def _carry_slice(self, init_carry: Mapping[str, Any] | None,
+                     start: int, stop: int, bp: int,
+                     idxs: np.ndarray | None = None) -> dict[str, torch.Tensor]:
+        """Fresh padded device carry for aggregates [start:stop) — or the
+        explicit ``idxs`` gather when the batch was length-reordered. The
+        caller's arrays are copied into host buffers first, never written."""
+        if init_carry is None:
+            return self.init_carry(bp)
+        out = self.init_carry_np(bp)
+        for k, full in init_carry.items():
+            piece = (np.asarray(full)[idxs] if idxs is not None
+                     else np.asarray(full)[start:stop])
+            out[k][: len(piece)] = piece
+        return self._device_carry(out)
 
     @property
     def tile_backend(self) -> str:
@@ -545,20 +640,31 @@ class ReplayEngine:
                 f"schema expects {want_sides}; rebuild the wire")
         return wire
 
-    def upload_resident(self, w: ResidentWire) -> ResidentCorpus:
+    def upload_resident(self, w: ResidentWire,
+                        stream: Optional["torch.cuda.Stream"] = None
+                        ) -> ResidentCorpus:
         """Device-side half of :meth:`prepare_resident`: copy a packed wire
         (fresh or mmapped from disk) to the device and return the replay
         handle. Buffer lengths bucket to powers of two unless
-        ``surge.replay.resident-len-bucket = exact``."""
+        ``surge.replay.resident-len-bucket = exact``.
+
+        ``stream`` (a CUDA side stream) issues the copies on that stream from
+        pinned staging and returns without waiting for them: the current
+        stream waits on their event before anything it queues later, and
+        each buffer is recorded on the current stream, so the caching
+        allocator keeps it until the work queued there is done."""
         self.check_wire(w)
+        if stream is not None and self.device.type != "cuda":
+            raise ValueError("an upload stream needs a CUDA engine")
         b = w.lengths.shape[0]
         t0 = time.perf_counter()
         pow2 = self.config.get_str(
             "surge.replay.resident-len-bucket", "pow2") == "pow2"
         packed_b = _bucket_rows(w.packed, pow2)
         side_b = {k: _bucket_rows(v, pow2) for k, v in w.side.items()}
-        flat_wire = _to_device(packed_b, self.device)
-        flat_side = {k: _to_device(v, self.device) for k, v in side_b.items()}
+        up = lambda a: _to_device(a, self.device, stream)  # noqa: E731
+        flat_wire = up(packed_b)
+        flat_side = {k: up(v) for k, v in side_b.items()}
         bs = min(self.batch_size, _round_up(max(b, 1), _LANE_MULTIPLE))
         b_pad = _round_up(max(b, 1), bs)
         if pow2:
@@ -570,9 +676,15 @@ class ReplayEngine:
         starts_p[:b] = w.starts
         lens_p = np.zeros((b_pad,), dtype=np.int32)
         lens_p[:b] = w.lengths
-        starts_dev = _to_device(starts_p, self.device)
-        lens_dev = _to_device(lens_p, self.device)
-        _sync(self.device)
+        starts_dev = up(starts_p)
+        lens_dev = up(lens_p)
+        if stream is None:
+            _sync(self.device)
+        else:
+            main = torch.cuda.current_stream(self.device)
+            main.wait_stream(stream)
+            for t in (flat_wire, starts_dev, lens_dev, *flat_side.values()):
+                t.record_stream(main)
         upload_s = time.perf_counter() - t0
         self.stats["h2d_s"] += upload_s
         return ResidentCorpus(
@@ -673,8 +785,13 @@ class ReplayEngine:
                                 num_aggregates=0, num_events=0, padded_events=0)
         init_sorted, ord_sorted = _apply_perm(resident.perm, init_carry,
                                               ordinal_base)
+        t0 = time.perf_counter()
         slab, padded = self._dispatch_resident(resident, init_sorted, ord_sorted)
+        _sync(self.device)
+        t1 = time.perf_counter()
         states = self._pull_states(slab, b, resident.perm, resident.cache)
+        self.stats["fold_s"] += t1 - t0
+        self.stats["pull_s"] += time.perf_counter() - t1
         return ReplayResult(states=states, num_aggregates=b,
                             num_events=resident.num_events, padded_events=padded)
 
@@ -901,3 +1018,454 @@ class ReplayEngine:
         slab, ord_d = self._fresh_slab(resident.b_pad)
         self._run_tiles(resident, plan, slab, ord_d, limit=1)
         _sync(self.device)
+
+    def replay_resident_streamed(self, w: ResidentWire, *,
+                                 segments: int | None = None,
+                                 init_carry: Mapping[str, Any] | None = None,
+                                 ordinal_base: np.ndarray | None = None
+                                 ) -> ReplayResult:
+        """Upload AND fold a packed wire in lane pieces: piece s's tiles are
+        queued right after its upload is issued, so the folds of earlier
+        pieces hide the uploads of later ones. On CUDA each piece's upload
+        runs on a side stream from pinned staging (:meth:`upload_resident`
+        with ``stream``); on the CPU the pieces run one after another.
+
+        Pieces split at event-count boundaries (balanced bytes) and each is a
+        zero-copy contiguous slice of the buffer: for a contiguous wire the
+        piece's lanes are a lane range; for an indirect wire (the
+        grouped-input pack, whose lane slabs tile the buffer in buffer order,
+        not lane order) the piece's lanes are the subset whose slabs fall in
+        the slice, re-sorted by descending length for the tile plan, and the
+        zero-length lanes go with the first piece. A wire whose slabs do not
+        tile its buffer at all falls back to one upload and
+        :meth:`replay_resident`. Every piece is folded once (``oneshot``:
+        the flat list fold); one pull pass over every piece follows, then the
+        global un-permute. Results are in the original aggregate order.
+
+        ``segments`` defaults to ``surge.replay.upload-stream-segments``
+        (0/1: one upload, then :meth:`replay_resident`)."""
+        if segments is None:
+            segments = self.config.get_int(
+                "surge.replay.upload-stream-segments", 0)
+        b = w.lengths.shape[0]
+
+        def plain() -> ReplayResult:
+            return self.replay_resident(self.upload_resident(w),
+                                        init_carry=init_carry,
+                                        ordinal_base=ordinal_base)
+
+        if segments <= 1 or b == 0:
+            return plain()
+        self.check_wire(w)
+        perm = w.perm
+        init_sorted, ord_sorted = _apply_perm(perm, init_carry, ordinal_base)
+
+        starts64 = w.starts.astype(np.int64)
+        lens64 = w.lengths.astype(np.int64)
+        cum = np.zeros(b + 1, dtype=np.int64)
+        np.cumsum(lens64, out=cum[1:])
+        total = int(cum[-1])
+        zero_lanes = np.array([], dtype=np.int64)
+        if np.array_equal(starts64, cum[:-1]):
+            # lanes tile the buffer in lane order: pieces are lane ranges
+            lane_order = None
+            piece_starts = cum
+            n_lanes = b
+        else:
+            # indirect wire: walk the nonzero lanes by start so each piece is
+            # still one contiguous slice; zero-length lanes occupy no rows
+            nz = np.nonzero(lens64 > 0)[0]
+            zero_lanes = np.nonzero(lens64 == 0)[0]
+            if nz.size == 0:
+                return plain()
+            lane_order = nz[np.argsort(starts64[nz], kind="stable")]
+            piece_starts = np.zeros(lane_order.size + 1, dtype=np.int64)
+            np.cumsum(lens64[lane_order], out=piece_starts[1:])
+            if not np.array_equal(starts64[lane_order], piece_starts[:-1]):
+                return plain()  # slabs don't tile the buffer
+            n_lanes = lane_order.size
+
+        bounds = [0]
+        for s in range(1, segments):
+            cut = int(np.searchsorted(piece_starts, total * s // segments))
+            bounds.append(min(max(cut, bounds[-1]), n_lanes))
+        bounds.append(n_lanes)
+
+        side = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                else None)
+        t0 = time.perf_counter()
+        pieces: list = []
+        padded = 0
+        first_piece = True
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            if hi <= lo:
+                continue
+            base = int(piece_starts[lo])
+            end = int(piece_starts[hi])
+            if lane_order is None:
+                lanes = np.arange(lo, hi)
+                sub_starts = starts64[lo:hi] - base
+                sub_lens = w.lengths[lo:hi]
+            else:
+                lanes = lane_order[lo:hi]
+                if first_piece and zero_lanes.size:
+                    lanes = np.concatenate([lanes, zero_lanes])
+                # piece-local descending length order keeps the plan's
+                # shrinking-prefix schedule (zero lanes last, folding nothing)
+                lanes = lanes[np.argsort(-lens64[lanes], kind="stable")]
+                sub_starts = np.where(lens64[lanes] > 0,
+                                      starts64[lanes] - base, 0)
+                sub_lens = w.lengths[lanes]
+            first_piece = False
+            sub = ResidentWire(
+                derived_key=dict(w.derived_key),
+                packed=w.packed[base: end + w.guard],
+                side={k: v[base: end + w.guard] for k, v in w.side.items()},
+                starts=sub_starts.astype(np.int32),
+                lengths=sub_lens, perm=None, guard=w.guard,
+                num_events=end - base, layout=w.layout)
+            piece = self.upload_resident(sub, stream=side)
+            # folded exactly once: the dense layout's gather never amortizes
+            piece.cache["oneshot"] = True
+            slab, pad = self._dispatch_resident(
+                piece,
+                None if init_sorted is None else
+                {k: v[lanes] for k, v in init_sorted.items()},
+                None if ord_sorted is None else ord_sorted[lanes])
+            padded += pad
+            # hold only what the pull needs, not the piece's wire buffers
+            pieces.append((lanes, slab))
+        _sync(self.device)
+        t1 = time.perf_counter()
+        out_sorted = {f.name: np.empty((b,), dtype=f.dtype)
+                      for f in self.spec.registry.state.fields}
+        for lanes, slab in pieces:
+            piece_states = self._pull_states(slab, int(lanes.shape[0]), None)
+            for name, col in piece_states.items():
+                out_sorted[name][lanes] = col
+        # fold_s spans the piece loop (uploads issued, folds queued) to the
+        # device's finish
+        self.stats["fold_s"] += t1 - t0
+        self.stats["pull_s"] += time.perf_counter() - t1
+        return ReplayResult(states=_unapply_perm(perm, out_sorted),
+                            num_aggregates=b, num_events=w.num_events,
+                            padded_events=padded)
+
+    # -- non-resident paths: host-packed windows -----------------------------------------
+
+    def replay_encoded(self, enc: EncodedEvents,
+                       init_carry: Mapping[str, Any] | None = None,
+                       ordinal_base: np.ndarray | None = None) -> ReplayResult:
+        """Fold one encoded batch in B-chunks of ``surge.replay.batch-size``
+        lanes, each through :meth:`_fold_window`'s time windows.
+
+        When resuming (``init_carry`` from a snapshot) and the batch declares
+        derived ordinal columns, ``ordinal_base`` carries each aggregate's
+        already-folded event count ``[B]`` so the derived ordinals continue."""
+        b = enc.batch_size
+        bs = min(self.batch_size, _round_up(max(b, 1), _LANE_MULTIPLE))
+        out = {f.name: np.zeros((b,), dtype=f.dtype)
+               for f in self.spec.registry.state.fields}
+        padded = 0
+        for start in range(0, max(b, 1), bs):
+            stop = min(start + bs, b)
+            if stop <= start:
+                break
+            carry = self._carry_slice(init_carry, start, stop, bs)
+            carry, scanned = self._fold_window(
+                carry, enc.type_ids[start:stop],
+                {k: v[start:stop] for k, v in enc.cols.items()}, bs,
+                derived_cols=enc.derived_cols,
+                ordinal_base=None if ordinal_base is None
+                else ordinal_base[start:stop])
+            for name in out:
+                out[name][start:stop] = carry[name].cpu().numpy()[: stop - start]
+            padded += bs * scanned
+        return ReplayResult(states=out, num_aggregates=b,
+                            num_events=int(enc.lengths.sum()), padded_events=padded)
+
+    def replay_columnar(self, colev: ColumnarEvents,
+                        init_carry: Mapping[str, Any] | None = None,
+                        ordinal_base: np.ndarray | None = None) -> ReplayResult:
+        """Fold a flat columnar log (the segment storage layout) B-chunk by
+        B-chunk: each chunk becomes a padded ``[bs, T]`` batch
+        (``columnar_to_batch``) of its own max length only. With
+        ``surge.replay.sort-by-length`` (default on) aggregates are ordered
+        by length (ascending) before chunking; states are scattered back to
+        the caller's aggregate order."""
+        b = colev.num_aggregates
+        bs = min(self.batch_size, _round_up(max(b, 1), _LANE_MULTIPLE))
+        perm = None
+        if self.sort_by_length and b > bs:
+            lengths_all = np.bincount(colev.agg_idx, minlength=b).astype(np.int64)
+            perm = np.argsort(lengths_all, kind="stable").astype(np.int32)
+            if np.array_equal(perm, np.arange(b, dtype=np.int32)):
+                perm = None  # already length-ordered: skip the relabel
+            else:
+                inv = np.empty_like(perm)
+                inv[perm] = np.arange(b, dtype=np.int32)
+                # relabel each event's aggregate to its length rank; the
+                # stable sort below groups by rank keeping time order
+                colev = ColumnarEvents(
+                    num_aggregates=b, agg_idx=inv[colev.agg_idx],
+                    type_ids=colev.type_ids, cols=colev.cols,
+                    derived_cols=dict(colev.derived_cols))
+        sorted_ev = colev.sorted_by_aggregate()
+        out = {f.name: np.zeros((b,), dtype=f.dtype)
+               for f in self.spec.registry.state.fields}
+        padded = 0
+        total_events = 0
+        for start in range(0, max(b, 1), bs):
+            stop = min(start + bs, b)
+            if stop <= start:
+                break
+            idxs = None if perm is None else perm[start:stop]
+            enc = columnar_to_batch(sorted_ev.slice_aggregates(start, stop))
+            carry = self._carry_slice(init_carry, start, stop, bs, idxs=idxs)
+            ob = (None if ordinal_base is None else
+                  np.asarray(ordinal_base)[idxs] if idxs is not None
+                  else ordinal_base[start:stop])
+            carry, scanned = self._fold_window(carry, enc.type_ids, enc.cols, bs,
+                                               derived_cols=enc.derived_cols,
+                                               ordinal_base=ob)
+            for name in out:
+                chunk_states = carry[name].cpu().numpy()[: stop - start]
+                if idxs is None:
+                    out[name][start:stop] = chunk_states
+                else:
+                    out[name][idxs] = chunk_states
+            padded += bs * scanned
+            total_events += int(enc.lengths.sum())
+        return ReplayResult(states=out, num_aggregates=b,
+                            num_events=total_events, padded_events=padded)
+
+    def _window_plan(self, t: int) -> list[tuple[int, int]]:
+        """Decompose a T-length window into ``(start, padded_width)`` pieces:
+        full pieces are ``time-chunk`` wide; the tail descends the
+        power-of-two :meth:`ladder_widths` down to ``min-time-window``
+        (``min-time-window = 0``: one full-width tail)."""
+        if t <= 0:
+            return []
+        chunk = self.time_chunk if self.time_chunk > 0 else t
+        plan = []
+        s = 0
+        while t - s >= chunk:
+            plan.append((s, chunk))
+            s += chunk
+        rem = t - s
+        if rem > 0 and self.min_time_window <= 0:
+            plan.append((s, chunk))
+        elif rem > 0:
+            ladder = self.ladder_widths()
+            w = ladder[-1]
+            while rem > 0:
+                while w > ladder[0] and w > rem:
+                    w //= 2
+                plan.append((s, w))
+                take = min(w, rem)
+                s += take
+                rem -= take
+        return plan
+
+    def ladder_widths(self) -> list[int]:
+        """The tail-window widths :meth:`_window_plan` can dispatch
+        (ascending): ``min-time-window × 2^k``, strictly below the
+        time-chunk."""
+        min_w = max(self.min_time_window, 1)
+        chunk = self.time_chunk if self.time_chunk > 0 else min_w
+        ladder = [min_w]
+        while ladder[-1] * 2 < chunk:
+            ladder.append(ladder[-1] * 2)
+        return ladder
+
+    def _fold_window(self, carry: dict, type_ids: np.ndarray,
+                     cols: Mapping[str, np.ndarray], bs: int,
+                     derived_cols: Mapping[str, str] | None = None,
+                     t_base: int = 0,
+                     ordinal_base: np.ndarray | None = None
+                     ) -> tuple[dict, int]:
+        """Fold one ``[b, T]`` batch (b ≤ bs) into ``carry`` ``{f: [bs]}``
+        through :meth:`_window_plan`'s windows; returns ``(carry,
+        scanned_t)``, the padded slots per lane dispatched.
+
+        Each window is packed on the host (``WireFormat.pack_window``: u8
+        ``[width, bs, nbytes]`` + side columns; a slot past a log's end or
+        with an out-of-range type id packs as the pad code, which folds to
+        nothing), uploaded and folded by :meth:`_fold_packed`. The derived
+        ordinal of time step t is ``ordinal_base[b] + t_base + s + t + 1``:
+        the resume base plus the window's global offset, folded into the
+        per-lane base on the host."""
+        wire = self._wire(frozenset(dict(derived_cols or {}).items()))
+        b, t = type_ids.shape
+        base = np.zeros((bs,), dtype=np.int32)
+        if ordinal_base is not None:
+            base[:b] = np.asarray(ordinal_base, dtype=np.int32)[:b]
+        scanned = 0
+        for s, width in self._window_plan(t):
+            e = min(s + width, t)
+            t0 = time.perf_counter()
+            packed, side = wire.pack_window(type_ids, cols, s, e, width, bs)
+            ord_base = base + np.int32(t_base + s)
+            t1 = time.perf_counter()
+            words = _to_device(packed, self.device)
+            sides = {k: _to_device(v, self.device) for k, v in side.items()}
+            t2 = time.perf_counter()
+            self.stats["pack_s"] += t1 - t0
+            self.stats["h2d_s"] += t2 - t1
+            self.stats["windows"] += 1
+            scanned += width
+            self._signatures.add((frozenset(wire.derived.items()), packed.shape,
+                                  tuple((k, v.shape) for k, v in sorted(side.items()))))
+            carry = self._fold_packed(carry, wire, words, sides, ord_base,
+                                      type_ids[:, s:e])
+        return carry, scanned
+
+    def _fold_packed(self, carry: dict, wire: WireFormat, words: torch.Tensor,
+                     sides: Mapping[str, torch.Tensor], ord_base: np.ndarray,
+                     type_ids: np.ndarray) -> dict:
+        """Fold one packed window (``words`` u8 ``[width, bs, nbytes]`` and
+        ``sides`` ``{n: [width, bs]}`` on the device, ``ord_base`` int32
+        ``[bs]``) into ``carry``, by the tile backend:
+
+        - ``pallas``: K1's list fold over a one-tile dense work list (tile 0:
+          lanes ``[0, bs)``, ``t_base`` 0), in place. A lane's length is its
+          window slots up to its last in-range type id (padding lanes: 0):
+          the slots past it pack to the pad code and fold to nothing, and an
+          out-of-range id before it decodes to a no-op step, as the
+          reference's window does.
+        - ``assoc``: the tree fold (:func:`_make_assoc_body`).
+        - ``xla``: the plain time scan (:func:`make_batch_fold`) of the
+          decoded window."""
+        backend = self.tile_backend
+        width, bs = words.shape[0], words.shape[1]
+        if backend == "pallas":
+            lo = _to_device(np.stack([window_lens(type_ids, wire.num_types, bs),
+                                      ord_base]), self.device)
+            i0s, t_bases, schedule = self._window_list(bs)
+            fold_kernels.tile_fold_list(
+                carry, words[None], {k: v[None] for k, v in sides.items()},
+                lo[0], lo[1], i0s, t_bases, width=width, bs=bs, spec=self.spec,
+                wire=wire, schedule=schedule)
+            return carry
+        ord_d = _to_device(np.asarray(ord_base, np.int32), self.device)
+        if backend == "assoc":
+            flat = wire.expand_flat(words.reshape(width * bs, wire.nbytes))
+            full = torch.full((bs,), width, dtype=torch.int32, device=self.device)
+            return _make_assoc_body(self.spec, wire, width)(
+                carry, flat.reshape(width, bs), sides, full, ord_d, 0)
+        fold = make_batch_fold(self.spec, dispatch=self._dispatch)
+        return fold(carry, wire.decode(words, sides, ord_d))
+
+    def _window_list(self, bs: int):
+        """The one-tile work list of a ``bs``-lane window on the device:
+        ``(i0s [0], t_bases [0], schedule)``, built once per ``bs``."""
+        hit = self._window_lists.get(bs)
+        if hit is None:
+            zero = np.zeros((1,), dtype=np.int32)
+            up = lambda a: _to_device(np.asarray(a, np.int32), self.device)  # noqa: E731
+            hit = self._window_lists[bs] = (
+                up(zero), up(zero),
+                tuple(up(a) for a in fold_kernels.list_schedule(zero, bs, bs)))
+        return hit
+
+    def replay_ragged(self, logs: Sequence[Sequence[Any]],
+                      encode: Callable[[Any], Any] | None = None,
+                      init_carry: Mapping[str, Any] | None = None) -> ReplayResult:
+        """Length-bucketed replay of ragged logs: aggregates group by log
+        length into ``surge.replay.length-buckets`` padded buckets, each
+        folds through :meth:`replay_encoded`, and results scatter back to
+        the original order. ``encode`` maps each raw event to its
+        tensor-schema form first; ``init_carry`` (``{field: [len(logs)]}``)
+        resumes each aggregate from a snapshot."""
+        if encode is not None:
+            logs = [[encode(e) for e in log] for log in logs]
+        groups = bucket_lengths([len(l) for l in logs], self.buckets)
+        out = {f.name: np.zeros((len(logs),), dtype=f.dtype)
+               for f in self.spec.registry.state.fields}
+        total_events = 0
+        padded = 0
+        for cap in sorted(groups):
+            idxs = groups[cap]
+            enc = encode_events(self.spec.registry, [logs[i] for i in idxs],
+                                pad_to=cap)
+            sub_init = (None if init_carry is None else
+                        {k: np.asarray(v)[idxs] for k, v in init_carry.items()})
+            res = self.replay_encoded(enc, init_carry=sub_init)
+            for name in out:
+                out[name][idxs] = res.states[name]
+            total_events += res.num_events
+            padded += res.padded_events
+        return ReplayResult(states=out, num_aggregates=len(logs),
+                            num_events=total_events, padded_events=padded)
+
+    def replay_columnar_chunks(self, chunks: Iterable[ColumnarEvents]
+                               ) -> ReplayResult:
+        """Fold a stream of aggregate-range chunks (each a disjoint set of
+        aggregates, as a columnar segment holds them): each chunk replays
+        through :meth:`replay_columnar` and the state columns concatenate in
+        order, with the chunks' aggregate ids when every chunk has them."""
+        fields = self.spec.registry.state.fields
+        parts: dict[str, list[np.ndarray]] = {f.name: [] for f in fields}
+        total_aggregates = total_events = padded = 0
+        ids: list = []
+        saw_ids = True
+        for colev in chunks:
+            res = self.replay_columnar(colev)
+            for name in parts:
+                parts[name].append(res.states[name])
+            total_aggregates += res.num_aggregates
+            total_events += res.num_events
+            padded += res.padded_events
+            if colev.aggregate_ids is None:
+                saw_ids = False
+            elif saw_ids:
+                ids.extend(colev.aggregate_ids)
+        if total_aggregates == 0:
+            return ReplayResult(states={f.name: np.zeros((0,), dtype=f.dtype)
+                                        for f in fields},
+                                num_aggregates=0, num_events=0, padded_events=0,
+                                aggregate_ids=[] if saw_ids else None)
+        return ReplayResult(
+            states={name: np.concatenate(arrs) for name, arrs in parts.items()},
+            num_aggregates=total_aggregates, num_events=total_events,
+            padded_events=padded, aggregate_ids=ids if saw_ids else None)
+
+    def replay_stream(self, chunks: Iterable[EncodedEvents], batch: int,
+                      init_carry: Mapping[str, Any] | None = None,
+                      ordinal_base: np.ndarray | None = None) -> ReplayResult:
+        """Fold a stream of EncodedEvents chunks (the same ``batch`` lanes,
+        consecutive time windows), carrying each B-chunk's state across
+        chunks on the device. A chunk's derived ordinals continue from the
+        cumulative width of the chunks before it."""
+        bs = min(self.batch_size, _round_up(max(batch, 1), _LANE_MULTIPLE))
+        n_bchunks = max((batch + bs - 1) // bs, 1)
+        carries: list = [None] * n_bchunks
+        total_events = 0
+        padded = 0
+        t_cursor = 0  # global time offset of the current chunk
+        for enc in chunks:
+            if enc.batch_size != batch:
+                raise ValueError(f"stream chunk batch {enc.batch_size} != {batch}")
+            for ci in range(n_bchunks):
+                start, stop = ci * bs, min((ci + 1) * bs, batch)
+                if carries[ci] is None:
+                    carries[ci] = self._carry_slice(init_carry, start, stop, bs)
+                carries[ci], scanned = self._fold_window(
+                    carries[ci], enc.type_ids[start:stop],
+                    {k: v[start:stop] for k, v in enc.cols.items()}, bs,
+                    derived_cols=enc.derived_cols, t_base=t_cursor,
+                    ordinal_base=None if ordinal_base is None
+                    else ordinal_base[start:stop])
+                padded += bs * scanned
+            total_events += int(enc.lengths.sum())
+            t_cursor += enc.max_len
+        if carries[0] is None:
+            raise ValueError("empty chunk stream")
+        out = {f.name: np.zeros((batch,), dtype=f.dtype)
+               for f in self.spec.registry.state.fields}
+        for ci in range(n_bchunks):
+            start, stop = ci * bs, min((ci + 1) * bs, batch)
+            for name in out:
+                out[name][start:stop] = carries[ci][name].cpu().numpy()[: stop - start]
+        return ReplayResult(states=out, num_aggregates=batch,
+                            num_events=total_events, padded_events=padded)

@@ -30,6 +30,7 @@ from surge_tpu_torch.models import shopping_cart
 from surge_tpu_torch.replay.engine import (ReplayEngine, make_batch_fold,
                                            make_step_fn)
 from surge_tpu_torch.saga import model as saga
+from tests.test_torch_isolation import leave_the_worker_as_found  # noqa: F401
 
 MODELS = {
     "shopping_cart": (shopping_cart, jcart, random_cart_log),

@@ -19,6 +19,7 @@ from surge_tpu_torch.codec.schema import SchemaRegistry
 from surge_tpu_torch.codec.wire import WireFormat
 from surge_tpu_torch.models import bank_account, counter
 from surge_tpu_torch.replay import fold_kernels
+from tests.test_torch_isolation import leave_the_worker_as_found  # noqa: F401
 
 CASES = {
     "counter-derived": (counter.make_replay_spec, jcounter.make_replay_spec,

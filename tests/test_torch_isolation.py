@@ -3,6 +3,8 @@ imports JAX or the surge_tpu package, the package imports with JAX blocked, and
 nothing falls back to the CPU when the card is missing."""
 
 import ast
+import ctypes
+import gc
 import os
 import subprocess
 import sys
@@ -13,6 +15,34 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "surge_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def leave_the_worker_as_found():
+    """Every port test module (each imports this fixture) leaves its pytest
+    worker fit for the JAX package's tests that share it: torch on one
+    intra-op thread, as other workers run beside it, and at the module's
+    end the reference programs it compiled dropped, its memory returned and
+    the process's peak resident set reset. A child process reports its
+    parent's peak resident set as its own (``getrusage`` after ``vfork``
+    and ``exec``), so a worker left at the peak the port's tests reached
+    inflates every child's reading there; ``tests/test_restore_bounded.py``
+    compares two children's peaks."""
+    import jax
+
+    torch.set_num_threads(1)
+    yield
+    jax.clear_caches()
+    gc.collect()
+    try:
+        ctypes.CDLL(None).malloc_trim(0)
+    except (OSError, AttributeError):
+        pass
+    try:
+        with open("/proc/self/clear_refs", "w") as f:
+            f.write("5")
+    except OSError:
+        pass
 
 
 def _imports(path: Path) -> set[str]:

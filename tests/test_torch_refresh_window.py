@@ -38,6 +38,7 @@ from surge_tpu_torch.replay import fold_kernels
 from surge_tpu_torch.replay.resident_state import ResidentStatePlane
 from surge_tpu_torch.saga import model as saga
 from tests.test_resident_state import TOPIC, make_log
+from tests.test_torch_isolation import leave_the_worker_as_found  # noqa: F401
 
 MODELS = {
     "counter-derived": (counter.make_replay_spec, jcounter.make_replay_spec,

@@ -25,6 +25,7 @@ from surge_tpu_torch.models import bank_account, counter
 from surge_tpu_torch.replay import engine as tengine
 from surge_tpu_torch.replay.corpus import synth_counter_corpus
 from surge_tpu_torch.replay.engine import ReplayEngine, ResidentWire
+from tests.test_torch_isolation import leave_the_worker_as_found  # noqa: F401
 
 BASE = {"surge.replay.batch-size": 256, "surge.replay.time-chunk": 32}
 

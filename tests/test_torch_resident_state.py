@@ -37,6 +37,7 @@ from tests.test_resident_state import (
     make_log,
     part_of,
 )
+from tests.test_torch_isolation import leave_the_worker_as_found  # noqa: F401
 
 #: arm -> (port overrides, reference overrides)
 ARMS = {

@@ -28,6 +28,7 @@ from surge_tpu.testing.support import random_saga_log
 from surge_tpu_torch.config import Config
 from surge_tpu_torch.replay.resident_state import ResidentStatePlane
 from surge_tpu_torch.saga import model as saga
+from tests.test_torch_isolation import leave_the_worker_as_found  # noqa: F401
 
 EVT = jsaga.event_formatting()
 TOPIC = "saga-events"

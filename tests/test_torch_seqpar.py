@@ -24,6 +24,7 @@ from surge_tpu_torch.replay.engine import ReplayEngine
 from surge_tpu_torch.saga import model as saga
 from tests.test_torch_resident import _bank_logs, _port_events
 from tests.test_torch_cart_saga import _columnar, _logs
+from tests.test_torch_isolation import leave_the_worker_as_found  # noqa: F401
 
 MODELS = {
     "counter": (counter, jcounter),

@@ -15,6 +15,7 @@ from surge_tpu.replay.engine import make_batch_fold as jmake_batch_fold
 from surge_tpu.replay.engine import make_step_fn as jmake_step_fn
 from surge_tpu_torch.models import bank_account, counter
 from surge_tpu_torch.replay.engine import make_batch_fold, make_step_fn
+from tests.test_torch_isolation import leave_the_worker_as_found  # noqa: F401
 
 MODELS = {
     "counter": (counter.make_replay_spec, jcounter.make_replay_spec),

@@ -24,6 +24,7 @@ from surge_tpu_torch.models import bank_account, counter
 from surge_tpu_torch.replay import fold_kernels
 from surge_tpu_torch.replay.corpus import synth_counter_corpus
 from surge_tpu_torch.replay.engine import ReplayEngine
+from tests.test_torch_isolation import leave_the_worker_as_found  # noqa: F401
 
 BASE = {"surge.replay.batch-size": 256, "surge.replay.time-chunk": 8,
         "surge.replay.tile-backend": "pallas"}

@@ -17,6 +17,7 @@ from surge_tpu.models import counter as jcounter
 from surge_tpu_torch.codec.schema import SchemaRegistry
 from surge_tpu_torch.codec.wire import WireFormat
 from surge_tpu_torch.models import bank_account, counter
+from tests.test_torch_isolation import leave_the_worker_as_found  # noqa: F401
 
 
 @dataclass(frozen=True)
