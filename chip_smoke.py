@@ -89,6 +89,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -171,10 +172,11 @@ def device_ms(fn, repeats: int, inner: int) -> float:
 
 
 def reset_launches() -> None:
-    from surge_tpu_torch.replay import fold_kernels
+    from surge_tpu_torch.replay import fold_kernels, scan_reduce
 
-    for k in fold_kernels.LAUNCHES:
-        fold_kernels.LAUNCHES[k] = 0
+    for counts in (fold_kernels.LAUNCHES, scan_reduce.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 # -- phase 1: kernel against its plain version ---------------------------------------
@@ -920,33 +922,83 @@ def phase_nonres_windows() -> dict:
 # -- phase 2: the main path -----------------------------------------------------------
 
 
-def profile_replay(eng, resident, fold_device_ms: float, wall_ms: float
-                   ) -> dict:
+def profile_replay(eng, resident, fold_device_ms: float, wall_ms: float,
+                   n_lists: int) -> dict:
     """One more replay under the profiler (its launches are not counted as the
-    main path's): the device time by kernel, and the device's idle share of
-    an unprofiled replay's wall time ``wall_ms``. The CUPTI trace holds fewer
-    list-fold launches than were made (1 of 2 in earlier runs; cause not
-    found), so the list fold's share of the busy time is its time from CUDA
-    events, ``fold_device_ms``, and the trace gives the rest."""
+    main path's), with the port's ``ReplayProfiler`` on the engine: the
+    device time by kernel, and the device's idle share of an unprofiled
+    replay's wall time ``wall_ms``. The CUPTI trace holds fewer list-fold
+    launches than were made (1 of 2 in earlier runs; cause not found), so the
+    list fold's share of the busy time is its time from CUDA events,
+    ``fold_device_ms``, and the trace gives the rest. The replay profiler's
+    stage counts must be one fold dispatch (``compile`` the first time a
+    shape is seen) and one fetch, and its ``record_function`` ranges must be
+    in the trace, the dispatch range around the list fold's launches."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from surge_tpu_torch.replay import fold_kernels
+    from surge_tpu_torch.replay.profiler import ReplayProfiler
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.replay_resident(resident)
-        profiled_wall_us = (time.perf_counter() - t0) * 1e6
+    rprof = eng.profiler = ReplayProfiler.counters()
+    launch = fold_kernels.tile_fold_list
+
+    def watched(*a, **k):
+        # each list-fold wrapper call as a range of its own, so the trace
+        # shows it inside the replay profiler's dispatch range
+        with record_function("chip_smoke.list_fold_call"):
+            return launch(*a, **k)
+
+    fold_kernels.tile_fold_list = watched
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.replay_resident(resident)
+            profiled_wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        fold_kernels.tile_fold_list = launch
+        eng.profiler = None
+    n = rprof.stage_n
+    if (n["compile"] + n["dispatch"], n["fetch"], n["refresh"]) != (1, 1, 0) \
+            or rprof.windows <= 0:
+        raise AssertionError(f"replay profiler: stage_n {n}, windows "
+                             f"{rprof.windows}")
+    ranges = {}
+    for evt in prof.events():
+        # the CPU ranges (each has a GPU-side annotation twin in the trace)
+        if (evt.device_type == DeviceType.CPU
+                and evt.name.startswith(("surge.replay.", "chip_smoke."))):
+            r = ranges.setdefault(evt.name, [])
+            r.append((evt.time_range.start, evt.time_range.end))
+    fold_range = "surge.replay." + ("compile" if n["compile"] else "dispatch")
+    calls = ranges.get("chip_smoke.list_fold_call", [])
+    if len(ranges.get(fold_range, ())) != 1 or \
+            len(ranges.get("surge.replay.fetch", ())) != 1 or \
+            len(calls) != n_lists:
+        raise AssertionError(f"record_function ranges in the trace: {ranges}")
+    (r0, r1), = ranges[fold_range]
+    if not all(r0 <= c0 and c1 <= r1 for c0, c1 in calls):
+        raise AssertionError(f"list-fold calls {calls} outside the "
+                             f"{fold_range} range {(r0, r1)}")
+    # the device side: kernels and copies by name; the ranges' GPU-side
+    # twins (user annotations on the stream) are no device work
     by_name: dict[str, list] = {}
     for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            acc = by_name.setdefault(evt.name, [0.0, 0])
-            acc[0] += evt.time_range.elapsed_us()
-            acc[1] += 1
+        if (evt.device_type != DeviceType.CUDA
+                or evt.name.startswith(("surge.replay.", "chip_smoke."))):
+            continue
+        acc = by_name.setdefault(evt.name, [0.0, 0])
+        acc[0] += evt.time_range.elapsed_us()
+        acc[1] += 1
     other_ms = sum(v[0] for n, v in by_name.items() if "list_fold" not in n) / 1e3
     busy_ms = other_ms + fold_device_ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {"wall_ms": wall_ms, "profiled_wall_ms": profiled_wall_us / 1e3,
+            "replay_profiler": {"stage_n": n, "windows": rprof.windows,
+                                "ranges": {k: len(v) for k, v in ranges.items()}},
             "device_busy_ms": busy_ms, "other_device_ms": other_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
             "list_fold_traced": sum(v[1] for n, v in by_name.items()
@@ -1014,7 +1066,7 @@ def drive_main_path(corpus, layout: str, card: str) -> dict:
                                7, 5)
     log("phase2-profile " + json.dumps(dict(
         profile_replay(eng, resident, fold_device_ms,
-                       statistics.median(folds) * 1e3),
+                       statistics.median(folds) * 1e3, n_lists),
         list_fold_launched=n_lists, card=card, layout=layout)))
     row = {
         "card": card, "layout": layout,
@@ -1505,7 +1557,7 @@ class RoundLedger:
         pass
 
 
-def make_plane(plog, overrides: dict, signals: list, ledger=None):
+def make_plane(plog, overrides: dict, signals: list, ledger=None, **hooks):
     from surge_tpu_torch.config import Config
     from surge_tpu_torch.models import counter
     from surge_tpu_torch.replay.resident_state import ResidentStatePlane
@@ -1518,7 +1570,7 @@ def make_plane(plog, overrides: dict, signals: list, ledger=None):
         serialize_state=lambda agg, st: repr(st).encode(),
         derived_cols={"sequence_number": "ordinal"},
         on_signal=lambda name, level: signals.append((name, level)),
-        ledger=ledger)
+        ledger=ledger, **hooks)
 
 
 def round_aggregates(plog, plane, rng, heavy: bool) -> np.ndarray:
@@ -1556,9 +1608,16 @@ def round_aggregates(plog, plane, rng, heavy: bool) -> np.ndarray:
     return np.concatenate(parts)
 
 
-async def wait_lag_zero(plane, deadline_s: float):
+async def wait_lag_zero(plane, deadline_s: float, views=None,
+                        rounds0: int = 0):
+    """Until the plane's watermarks reach the log's end; with ``views``, also
+    until the round that got there has closed (its views' leg folded, its
+    ledger record written), which the views' leg delays past the watermark
+    advance."""
     t0 = time.perf_counter()
-    while plane.lag_records() > 0:
+    while plane.lag_records() > 0 or (
+            views is not None and (plane.stats["rounds"] <= rounds0
+                                   or views.inflight)):
         if time.perf_counter() - t0 > deadline_s:
             raise AssertionError(f"refresh never caught up (lag "
                                  f"{plane.lag_records()})")
@@ -1648,9 +1707,13 @@ def profile_round_stats(prof, wall_s: float, windows: int, window_ops: int
 
 
 async def drive_plane(card: str, *, aggregates: int, capacity: int,
-                      rounds: int, dispatch: str, seed: int) -> dict:
+                      rounds: int, dispatch: str, seed: int, plog=None,
+                      views=None) -> dict:
     """One plane through its seed, refresh rounds and read-back; fails on any
-    signal, fallback, torn row or state off its closed form."""
+    signal, fallback, torn row or state off its closed form. ``plog`` reuses
+    an earlier plane's log (its events are the new plane's seed); ``views``
+    (a :class:`ViewArm`) rides the plane with materialized views and a
+    recording tracer. The log comes back under ``"plog"``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1658,15 +1721,20 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
 
     rng = np.random.default_rng(seed)
     t0 = time.perf_counter()
-    plog = PlaneLog(aggregates)
-    lens = 1 + rng.binomial(7, 0.2, size=aggregates)  # 1-8 events, ~2.4 mean
-    plog.append(np.repeat(np.arange(aggregates, dtype=np.int64), lens), rng)
+    if plog is None:
+        plog = PlaneLog(aggregates)
+        lens = 1 + rng.binomial(7, 0.2, size=aggregates)  # 1-8 events, ~2.4 mean
+        plog.append(np.repeat(np.arange(aggregates, dtype=np.int64), lens), rng)
+    seed_events = int(plog.n_events.sum())
     log_s = time.perf_counter() - t0
     signals: list = []
     ledger = RoundLedger()
     plane = make_plane(plog, {
         "surge.replay.resident.capacity": capacity,
-        "surge.replay.resident.refresh-dispatch": dispatch}, signals, ledger)
+        "surge.replay.resident.refresh-dispatch": dispatch}, signals, ledger,
+        **(views.hooks() if views is not None else {}))
+    if views is not None:
+        views.attach(plane)
     if plane.engine.tile_backend != "pallas":
         raise AssertionError("the plane's backend did not resolve to the kernels")
     # host clocks around two plane stages (measurement only): the LRU
@@ -1746,12 +1814,15 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
     profiled = None
     try:
         for r in range(rounds + 1):  # the last round runs under the profiler
+            if views is not None:
+                views.on_round(r, rounds, plane)
             aggs = round_aggregates(plog, plane, rng, heavy=r % 4 == 3)
             n0 = len(ledger.rounds)
             s0 = dict(stage_s)
             # the round's clock starts once the append returns: the append
             # is synchronous on the loop, so the plane cannot start its
             # round before that
+            rounds0 = plane.stats["rounds"]
             if r == rounds:
                 torch.cuda.synchronize()
                 u0 = uploads["window"]
@@ -1761,7 +1832,7 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
                     a0 = time.perf_counter()
                     plog.append(aggs, rng)
                     w0 = time.perf_counter()
-                    await wait_lag_zero(plane, 300.0)
+                    await wait_lag_zero(plane, 300.0, views, rounds0)
                     torch.cuda.synchronize()
                     wall = time.perf_counter() - w0
                 n_win = sum(kw["windows"] for kw in ledger.rounds[n0:])
@@ -1772,7 +1843,7 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
                 a0 = time.perf_counter()
                 plog.append(aggs, rng)
                 w0 = time.perf_counter()
-                await wait_lag_zero(plane, 300.0)
+                await wait_lag_zero(plane, 300.0, views, rounds0)
                 wall = time.perf_counter() - w0
             append_s = w0 - a0
             for kw in ledger.rounds[n0:]:
@@ -1798,6 +1869,8 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
         stop.set()
         await reader
     refresh_launches = dict(fold_kernels.LAUNCHES)
+    view_out = (await views.finish(plane, plog, per_round)
+                if views is not None else None)
     rows_per_s = await read_back(plane, plog, 65536)
     await plane.stop()
     measured = [x for x in per_round if not x["profiled"]]
@@ -1831,7 +1904,8 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
         raise AssertionError("the torn-row reader never read")
     return {
         "card": card, "dispatch": dispatch, "aggregates": aggregates,
-        "capacity": capacity, "seed_events": int(lens.sum()),
+        "capacity": capacity, "seed_events": seed_events, "plog": plog,
+        "views": view_out,
         "log_build_s": log_s, "start_s": start_s, "seed": plane.seed_timing,
         "seed_launches": seed_launches,
         "refresh_launches": refresh_launches, "refresh_windows": windows,
@@ -1850,12 +1924,14 @@ def phase_plane(card: str) -> dict:
     main = asyncio.run(drive_plane(
         card, aggregates=PLANE_AGGREGATES, capacity=PLANE_CAPACITY,
         rounds=PLANE_ROUNDS, dispatch="bucketed", seed=4))
+    plog = main.pop("plog")
     log("phase4 " + json.dumps(main))
     dense = asyncio.run(drive_plane(
         card, aggregates=65536, capacity=32768, rounds=4, dispatch="dense",
         seed=5))
+    dense.pop("plog")
     log("phase4-dense " + json.dumps(dense))
-    return {"main": main, "dense": dense}
+    return {"main": main, "dense": dense, "plog": plog}
 
 
 # -- phase 6: the saga family through the resident state plane ----------------------
@@ -2209,6 +2285,22 @@ class RssSampler:
         self.process_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
+def write_bench_segment(corpus, path: str) -> None:
+    """The bench corpus as a columnar segment of 16 chunks of 65,536
+    aggregates (ids ``a<i>``), chunk ``k`` recorded for partition ``k % 8``."""
+    from surge_tpu_torch.log.columnar import ColumnarSegmentWriter
+
+    ev = corpus.events
+    n = corpus.num_aggregates
+    ids = [f"a{i}" for i in range(n)]
+    with ColumnarSegmentWriter(path, extra_header={"topic": "counter-events"}) as w:
+        for k, lo in enumerate(range(0, n, RESTORE_CHUNK_AGGREGATES)):
+            hi = min(lo + RESTORE_CHUNK_AGGREGATES, n)
+            chunk = ev.slice_aggregates(lo, hi)
+            chunk.aggregate_ids = ids[lo:hi]
+            w.append(chunk, partition=k % PLANE_PARTITIONS)
+
+
 def phase_restore_segment(card: str, corpus, work: str) -> dict:
     """The bench corpus written once as a segment of 16 chunks (8
     partitions), restored with ``restore_from_segment`` into the in-memory
@@ -2220,11 +2312,7 @@ def phase_restore_segment(card: str, corpus, work: str) -> dict:
     import torch
 
     from surge_tpu_torch.config import Config
-    from surge_tpu_torch.log.columnar import (
-        ColumnarSegmentWriter,
-        read_segment,
-        segment_info,
-    )
+    from surge_tpu_torch.log.columnar import read_segment, segment_info
     from surge_tpu_torch.models import counter
     from surge_tpu_torch.replay import fold_kernels
     from surge_tpu_torch.replay.engine import ReplayEngine
@@ -2232,21 +2320,15 @@ def phase_restore_segment(card: str, corpus, work: str) -> dict:
     from surge_tpu_torch.store.restore import _chunk_wire
 
     path = os.path.join(work, "bench.scol")
-    ev = corpus.events
     n = corpus.num_aggregates
     ids = [f"a{i}" for i in range(n)]
     t0 = time.perf_counter()
-    with ColumnarSegmentWriter(path, extra_header={"topic": "counter-events"}) as w:
-        for k, lo in enumerate(range(0, n, RESTORE_CHUNK_AGGREGATES)):
-            hi = min(lo + RESTORE_CHUNK_AGGREGATES, n)
-            chunk = ev.slice_aggregates(lo, hi)
-            chunk.aggregate_ids = ids[lo:hi]
-            w.append(chunk, partition=k % PLANE_PARTITIONS)
+    write_bench_segment(corpus, path)
     write_s = time.perf_counter() - t0
     spec = counter.make_replay_spec()
     cfg = Config()
     out = {"card": card, "aggregates": n, "events": corpus.num_events,
-           "chunks": -(-n // RESTORE_CHUNK_AGGREGATES),
+           "segment_path": path, "chunks": -(-n // RESTORE_CHUNK_AGGREGATES),
            "segment_bytes": os.path.getsize(path), "write_s": write_s,
            "source": "flat (oneshot chunks)", "restores": []}
     for cache in ("cold", "warm"):
@@ -2572,6 +2654,604 @@ def phase_nonresident(card: str) -> dict:
     return out
 
 
+# -- phase 11: the analytics plane: the scan engine, views, profiler, tracer, faults --
+
+#: scans of phase 11's kernel check on the first chunk of phase 7's segment:
+#: tests/test_query_engine.py's QUERIES (all four ops; typed; conjunctive
+#: with type_id; zero-match), a group_by type_id and an OR group
+def query_cases() -> dict:
+    from surge_tpu_torch.replay.query import Aggregate as A
+    from surge_tpu_torch.replay.query import Predicate as P
+    from surge_tpu_torch.replay.query import ScanQuery as Q
+
+    return {
+        "all_ops": Q(aggregates=(A("count"), A("sum", "increment_by"),
+                                 A("min", "increment_by"),
+                                 A("max", "sequence_number"))),
+        "typed": Q(aggregates=(A("count"), A("sum", "increment_by")),
+                   event_types=("CountIncremented",)),
+        "conjunctive": Q(aggregates=(A("count"), A("max", "sequence_number")),
+                         predicates=(P("sequence_number", ">", 3),
+                                     P("type_id", "!=", 2))),
+        "zero_match": Q(aggregates=(A("count"), A("min", "sequence_number"),
+                                    A("max", "increment_by")),
+                        predicates=(P("sequence_number", ">=", 10_000),)),
+        "group_by_type_id": Q(aggregates=(A("count"), A("sum", "increment_by"),
+                                          A("min", "sequence_number"),
+                                          A("max", "sequence_number")),
+                              group_by="type_id"),
+        "or_group": Q(aggregates=(A("count"), A("sum", "increment_by")),
+                      predicates=(P("sequence_number", ">", 1),),
+                      or_groups=((P("type_id", "==", 0), P("type_id", "==", 1)),
+                                 (P("increment_by", "<=", 1),
+                                  P("sequence_number", ">=", 50)))),
+    }
+
+
+def bank_query(predicate: bool):
+    from surge_tpu_torch.replay.query import Aggregate as A
+    from surge_tpu_torch.replay.query import Predicate as P
+    from surge_tpu_torch.replay.query import ScanQuery as Q
+
+    return Q(aggregates=(A("count"), A("sum", "new_balance"),
+                         A("min", "new_balance"), A("max", "new_balance")),
+             predicates=(P("new_balance", ">", 1000.5),) if predicate else ())
+
+
+def capture_scan(eng, colev, query) -> tuple[dict, dict]:
+    """``eng._raw_scan(colev, query)`` with the scan-reduce call's inputs
+    kept: the exact tensors the scan gives the kernel."""
+    import surge_tpu_torch.replay.query as qmod
+
+    got: dict = {}
+    real = qmod.scan_reduce
+
+    def keep(mask, cols, ops, offsets, order=None):
+        got.update(mask=mask, cols=list(cols), ops=list(ops), offsets=offsets,
+                   order=order)
+        return real(mask, cols, ops, offsets, order)
+
+    qmod.scan_reduce = keep
+    try:
+        _, out = eng._raw_scan(colev, query)
+    finally:
+        qmod.scan_reduce = real
+    return got, out
+
+
+def scan_library(inp: dict, n: int):
+    """The same counts, sums, mins and maxes as one PyTorch call each
+    (``index_add_``, ``scatter_reduce_``): the yardstick. Float sums add in
+    atomic order there, so its bytes may differ run to run."""
+    import torch
+
+    from surge_tpu_torch.replay.scan_reduce import sentinel
+
+    mask, offsets, order = inp["mask"][:n], inp["offsets"], inp["order"]
+    g_n = offsets.shape[0] - 1
+    lens = (offsets[1:] - offsets[:-1]).to(torch.int64)
+    grp = torch.repeat_interleave(torch.arange(g_n, device=mask.device), lens)
+    if order is not None:
+        by_event = torch.empty_like(grp)
+        by_event[order.to(torch.int64)] = grp
+        grp = by_event
+
+    def run():
+        out = [torch.zeros(g_n, dtype=torch.int32, device=mask.device)
+               .index_add_(0, grp, mask.to(torch.int32))]
+        for col, op in zip(inp["cols"], inp["ops"]):
+            c = col[:n]
+            if op == "sum":
+                out.append(torch.zeros(g_n, dtype=c.dtype, device=c.device)
+                           .index_add_(0, grp, torch.where(mask, c, 0)))
+            else:
+                sent = sentinel(op, c.dtype)
+                out.append(torch.full((g_n,), sent, dtype=c.dtype, device=c.device)
+                           .scatter_reduce_(0, grp, torch.where(mask, c, sent),
+                                            reduce="amin" if op == "min" else "amax"))
+        return out
+    return run
+
+
+def scan_bound_ms(inp: dict, n: int) -> float:
+    """Bytes the reduction must move at the card's memory rate: the mask
+    byte and each distinct column's 4 bytes an event, the order (when the
+    groups are not in event order), the offsets, and the outputs."""
+    g_n = inp["offsets"].shape[0] - 1
+    cols = len({c.data_ptr() for c in inp["cols"]})
+    total = (n * (1 + 4 * cols + (4 if inp["order"] is not None else 0))
+             + 4 * (g_n + 1) + 4 * g_n * (1 + len(inp["cols"])))
+    return total / HBM_BYTES_PER_S * 1e3
+
+
+def check_scan_case(label: str, eng, colev, query) -> dict:
+    """The scan's reduction inputs through the kernel and its plain version:
+    byte for byte, and their times beside the bound and the library call."""
+    import torch
+
+    from surge_tpu_torch.replay.scan_reduce import scan_reduce, scan_reduce_reference
+
+    inp, _ = capture_scan(eng, colev, query)
+    n = colev.num_events
+    args = (inp["mask"], inp["cols"], inp["ops"], inp["offsets"], inp["order"])
+    count, outs = scan_reduce(*args)
+    pcount, pouts = scan_reduce_reference(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for k, (a, b) in enumerate(zip([count] + outs, [pcount] + pouts)):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        if a.tobytes() != b.tobytes():
+            bad = np.flatnonzero(a.view(np.uint32) != b.view(np.uint32))[:5]
+            raise AssertionError(f"scan_reduce {label}: output {k} differs from "
+                                 f"the plain version at groups {bad}: "
+                                 f"{a[bad]} != {b[bad]}")
+        both_nan = np.isnan(a) & np.isnan(b) if a.dtype.kind == "f" else False
+        diff = np.where(both_nan, 0.0, np.abs(a.astype(np.float64) - b.astype(np.float64)))
+        err = max(err, float(diff.max()) if diff.size else 0.0)
+    lib = scan_library(inp, n)
+    lib_out = lib()
+    torch.cuda.synchronize()
+    # a slow case (a few huge groups, each one thread's serial walk) is
+    # timed on fewer launches
+    t0 = time.perf_counter()
+    scan_reduce(*args)
+    torch.cuda.synchronize()
+    reps = (5, 3) if time.perf_counter() - t0 < 0.05 else (2, 1)
+    row = {"case": label, "events": n, "groups": inp["offsets"].shape[0] - 1,
+           "outputs": inp["ops"], "ordered": inp["order"] is None,
+           "matched": int(count.sum()),
+           "max_abs_err": err,
+           "ms": device_ms(lambda: scan_reduce(*args), *reps),
+           "plain_ms": cuda_ms(lambda: scan_reduce_reference(*args), 3, 1),
+           "library_ms": device_ms(lib, 5, 3),
+           "library_equal": all(a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+                                for a, b in zip(lib_out, [count] + outs)),
+           "bound_ms": scan_bound_ms(inp, n), "bound_by": "bytes"}
+    log("phase11-kernel " + json.dumps(row))
+    return row
+
+
+def phase_query(card: str, corpus, seg_path: str) -> dict:
+    """The scan-reduce kernel against its plain version on the scans of the
+    segment's first chunk (65,536 aggregates), phase 3's 500k bank accounts
+    (float sums, mins and maxes; once with NaN), and a 2**24 + 1 predicate;
+    then ``scan_segment`` over the 16-chunk segment against the numpy
+    ``scan_reference``, and ``query_states_segment`` against the closed
+    form."""
+    import torch
+
+    from surge_tpu_torch.codec.tensor import ColumnarEvents
+    from surge_tpu_torch.config import Config
+    from surge_tpu_torch.log.columnar import read_segment, segment_info
+    from surge_tpu_torch.models import bank_account, counter
+    from surge_tpu_torch.replay import fold_kernels, scan_reduce
+    from surge_tpu_torch.replay.engine import ReplayEngine
+    from surge_tpu_torch.replay.query import (Predicate, QueryEngine, ScanQuery,
+                                              StateQuery, scan_reference)
+
+    spec = counter.make_replay_spec()
+    qeng = QueryEngine(spec)
+    chunk0 = next(read_segment(seg_path))
+    rows = [check_scan_case(f"counter chunk0 {name}", qeng, chunk0, q)
+            for name, q in query_cases().items()]
+    # 2**24 + 1 compares as 2**24 (float32 predicate values, as the reference)
+    big = ColumnarEvents(
+        num_aggregates=chunk0.num_aggregates, agg_idx=chunk0.agg_idx,
+        type_ids=chunk0.type_ids,
+        cols={**chunk0.cols, "increment_by": (chunk0.cols["increment_by"]
+                                              + np.int32((1 << 24) - 1))},
+        derived_cols=dict(chunk0.derived_cols),
+        aggregate_ids=chunk0.aggregate_ids)
+    q24 = ScanQuery(aggregates=query_cases()["typed"].aggregates,
+                    predicates=(Predicate("increment_by", "==", (1 << 24) + 1),))
+    rows.append(check_scan_case("counter chunk0 2^24+1", qeng, big, q24))
+    want24 = int((big.cols["increment_by"] == (1 << 24)).sum())
+    if rows[-1]["matched"] != want24:
+        raise AssertionError(f"2^24 + 1 matched {rows[-1]['matched']} events, "
+                             f"not the {want24} at 2^24")
+    bcol = bank_corpus(500_000, seed=5)
+    beng = QueryEngine(bank_account.make_replay_spec())
+    rows.append(check_scan_case("bank 500k floats", beng, bcol, bank_query(False)))
+    rows.append(check_scan_case("bank 500k floats filtered", beng, bcol,
+                                bank_query(True)))
+    nan_cols = dict(bcol.cols)
+    nan_cols["new_balance"] = bcol.cols["new_balance"].copy()
+    nan_cols["new_balance"][::997] = np.nan
+    bnan = ColumnarEvents(num_aggregates=bcol.num_aggregates, agg_idx=bcol.agg_idx,
+                          type_ids=bcol.type_ids, cols=nan_cols)
+    rows.append(check_scan_case("bank 500k NaN", beng, bnan, bank_query(False)))
+    del bcol, bnan, nan_cols
+    torch.cuda.empty_cache()
+
+    # scan_segment over the 16 chunks (the main path of a ScanQuery)
+    q = query_cases()["all_ops"]
+    seg_eng = QueryEngine(spec)
+    reset_launches()
+    t0 = time.perf_counter()
+    got = seg_eng.scan_segment(seg_path, q)
+    wall = time.perf_counter() - t0
+    scan_launches = {**fold_kernels.LAUNCHES, **scan_reduce.LAUNCHES}
+    if scan_launches["scan_reduce"] != got.chunks or \
+            got.chunks != segment_info(seg_path)["num_chunks"]:
+        raise AssertionError(f"scan_segment: {got.chunks} chunks, launches "
+                             f"{scan_launches}")
+    t1 = time.perf_counter()
+    want = scan_reference(read_segment(seg_path, columns=q.columns_needed()), q,
+                          spec.registry)
+    oracle_s = time.perf_counter() - t1
+    if got.aggregate_ids != want.aggregate_ids or set(got.columns) != set(want.columns):
+        raise AssertionError("scan_segment: ids or columns differ from scan_reference")
+    for name, col in want.columns.items():
+        if got.columns[name].tobytes() != col.tobytes():
+            raise AssertionError(f"scan_segment: {name} differs from scan_reference")
+    seg = {"card": card, "query": "all_ops", "chunks": got.chunks,
+           "events": got.scanned_events, "matched": got.matched_events,
+           "wall_s": wall, "scan_events_per_sec": got.scanned_events / wall,
+           "stages_s": dict(seg_eng.stage_s), "launches": scan_launches,
+           "oracle_chunks": list(range(got.chunks)), "oracle_s": oracle_s}
+    log("phase11-scan " + json.dumps(seg))
+
+    # query_states_segment: fold (K1, one launch a window), filter, project
+    reng = ReplayEngine(spec, config=Config())
+    sq = StateQuery(select=("count", "version"),
+                    predicates=(Predicate("count", ">=", 50),))
+    reset_launches()
+    w0 = reng.stats["windows"]
+    t0 = time.perf_counter()
+    res = seg_eng.query_states_segment(seg_path, sq, reng)
+    wall = time.perf_counter() - t0
+    st_launches = {**fold_kernels.LAUNCHES, **scan_reduce.LAUNCHES}
+    windows = reng.stats["windows"] - w0
+    if st_launches["tile_fold_list"] != windows or windows <= 0 or \
+            sum(st_launches.values()) != windows:
+        raise AssertionError(f"query_states: {windows} windows, launches "
+                             f"{st_launches}")
+    idx = np.fromiter((int(a[1:]) for a in res.aggregate_ids), dtype=np.int64,
+                      count=len(res.aggregate_ids))
+    if not (np.array_equal(idx, np.flatnonzero(corpus.expected_count >= 50))
+            and np.array_equal(res.columns["count"].astype(np.int64),
+                               corpus.expected_count[idx])
+            and np.array_equal(res.columns["version"],
+                               corpus.expected_version[idx])):
+        raise AssertionError("query_states: states off the closed form")
+    states = {"card": card, "predicate": "count >= 50", "matched": len(idx),
+              "events": res.scanned_events, "wall_s": wall,
+              "events_per_sec": res.scanned_events / wall, "windows": windows,
+              "launches": st_launches}
+    log("phase11-states " + json.dumps(states))
+    return {"kernel_rows": rows, "scan": seg, "states": states}
+
+
+class RecordingTracer:
+    """A duck-typed tracer that keeps every finished span (name and
+    attributes)."""
+
+    class _Span:
+        def __init__(self, tracer, name):
+            self._tracer, self.name, self.attributes = tracer, name, {}
+            self.start_time = self.start_mono = 0.0
+
+        def set_attribute(self, key, value):
+            self.attributes[key] = value
+
+        def finish(self):
+            self._tracer.spans.append(self)
+
+    def __init__(self):
+        self.spans: list = []
+
+    def start_span(self, name, parent=None):
+        return RecordingTracer._Span(self, name)
+
+
+def view_defs() -> dict:
+    from surge_tpu_torch.replay.query import Aggregate as A
+    from surge_tpu_torch.replay.query import Predicate as P
+    from surge_tpu_torch.replay.query import ScanQuery as Q
+    from surge_tpu_torch.replay.views import ViewDef
+
+    return {
+        "V1": ViewDef(name="V1", query=Q(
+            aggregates=(A("count"), A("sum", "increment_by")),
+            event_types=("CountIncremented",))),
+        "V2": ViewDef(name="V2", query=Q(
+            aggregates=(A("count"), A("sum", "increment_by"),
+                        A("min", "sequence_number"),
+                        A("max", "sequence_number")),
+            group_by="type_id")),
+        "V3": ViewDef(name="V3", query=Q(
+            aggregates=(A("count"), A("max", "sequence_number")),
+            predicates=(P("sequence_number", ">", 2),))),
+    }
+
+
+def committed_columnar(plog, watermarks: dict):
+    """Every event the plane log holds below ``watermarks`` as one columnar
+    chunk, grouped by aggregate in log order (each aggregate lives in one
+    partition), with its ids: the from-scratch scan's input."""
+    from surge_tpu_torch.codec.tensor import ColumnarEvents
+
+    keys, vals = [], []
+    for p, wm in watermarks.items():
+        recs = [r for r in plog.log.read(PLANE_TOPIC, int(p), 0) if r.offset < wm]
+        keys.extend(int(r.key[1:]) for r in recs)
+        vals.append(np.frombuffer(b"".join(r.value for r in recs),
+                                  dtype=EVENT_RECORD))
+    agg = np.asarray(keys, dtype=np.int64)
+    rec = np.concatenate(vals)
+    order = np.argsort(agg, kind="stable")
+    uniq, inv = np.unique(agg[order], return_inverse=True)
+    rec = rec[order]
+    return ColumnarEvents(
+        num_aggregates=len(uniq), agg_idx=inv.astype(np.int32),
+        type_ids=rec["type"].astype(np.int32),
+        cols={"increment_by": rec["inc"].astype(np.int32),
+              "decrement_by": np.zeros(len(rec), dtype=np.int32),
+              "sequence_number": rec["seq"].astype(np.int32)},
+        aggregate_ids=[f"a{i}" for i in uniq.tolist()])
+
+
+class ViewArm:
+    """Phase 4's plane with materialized views: V1 and V2 registered before
+    the seed, V3 after half of the rounds (the backfill path), a changefeed
+    subscription on each from its first entry, and a recording tracer."""
+
+    def __init__(self):
+        self.tracer = RecordingTracer()
+        self.defs = view_defs()
+        self.subs: dict = {}
+        self.folds: list = []  # (kind, seconds, scan launches)
+        self.inflight = False  # a refresh round has not returned yet
+
+    def hooks(self) -> dict:
+        return {"tracer": self.tracer}
+
+    def _timed(self, kind, fn):
+        from surge_tpu_torch.replay import scan_reduce
+
+        def run(*a, **k):
+            l0 = scan_reduce.LAUNCHES["scan_reduce"]
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.folds.append((kind if self.plane._running or kind != "round"
+                                   else "seed", time.perf_counter() - t0,
+                                   scan_reduce.LAUNCHES["scan_reduce"] - l0))
+        return run
+
+    def attach(self, plane):
+        from surge_tpu_torch.replay.views import MaterializedViews
+
+        self.plane = plane
+        refresh_once = plane._refresh_once
+
+        async def watched():
+            self.inflight = True
+            try:
+                return await refresh_once()
+            finally:
+                self.inflight = False
+
+        plane._refresh_once = watched
+        self.views = MaterializedViews(plane.spec, config=plane.config,
+                                       device=plane.device)
+        self.views.fold_round = self._timed("round", self.views.fold_round)
+        self.views.fold_view_backfill = self._timed(
+            "backfill", self.views.fold_view_backfill)
+        plane.attach_views(self.views)
+        for name in ("V1", "V2"):
+            plane.register_view(self.defs[name])
+            self.subs[name] = self.views.subscribe(name)
+
+    def on_round(self, r: int, rounds: int, plane):
+        if r == rounds // 2:
+            plane.register_view(self.defs["V3"])
+            self.subs["V3"] = self.views.subscribe("V3")
+
+    async def finish(self, plane, plog, per_round) -> dict:
+        """Wait for the views' last fold, then hold every view to a
+        from-scratch scan at its watermarks and to its replayed changefeed."""
+        from surge_tpu_torch.replay.query import QueryEngine
+
+        t0 = time.perf_counter()
+        while True:
+            summ = {v["view"]: v for v in self.views.summary()}
+            if all(v["active"] and v["error"] is None
+                   and {int(p): w for p, w in v["watermarks"].items()}
+                   == plane._watermarks for v in summ.values()):
+                break
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError(f"views never caught up: {summ}")
+            await asyncio.sleep(0.01)
+        for _ in range(3):
+            await asyncio.sleep(0)  # changefeed entries land on the loop
+        out = {}
+        committed: dict = {}  # one chunk per set of watermarks
+        for name, vdef in self.defs.items():
+            snap = self.views.snapshot(name)
+            c0 = time.perf_counter()
+            key = tuple(sorted(snap["watermarks"].items()))
+            if key not in committed:
+                committed[key] = committed_columnar(plog, snap["watermarks"])
+            colev = committed[key]
+            res = QueryEngine(plane.spec, device=plane.device).scan_chunks(
+                [colev], vdef.query)
+            order = sorted(range(res.num_aggregates),
+                           key=lambda j: res.aggregate_ids[j])
+            if snap["keys"] != [res.aggregate_ids[j] for j in order]:
+                raise AssertionError(f"view {name}: keys differ from the scan")
+            for col, arr in res.columns.items():
+                if snap["columns"][col].tobytes() != np.asarray(arr)[order].tobytes():
+                    raise AssertionError(f"view {name}: {col} differs from a "
+                                         f"from-scratch scan_chunks")
+            state: dict = {}
+            entries = 0
+            q = self.subs[name].queue
+            while not q.empty():
+                e = q.get_nowait()
+                entries += 1
+                if e.get("reset"):
+                    state.clear()
+                for row in e["rows"]:
+                    state[row["key"]] = row
+            if state != {r["key"]: r for r in snap["rows"]}:
+                raise AssertionError(f"view {name}: its changefeed does not "
+                                     f"rebuild the snapshot")
+            out[name] = {"groups": len(snap["keys"]), "version": snap["version"],
+                         "changefeed_entries": entries,
+                         "check_s": time.perf_counter() - c0}
+        gathers = [s for s in self.tracer.spans if s.name == "resident.gather"]
+        if not gathers or set(gathers[0].attributes) != {
+                "leg.coalesce-ms", "leg.dispatch-ms", "leg.fetch-ms",
+                "leg.decode-ms", "rows"}:
+            raise AssertionError(f"tracer: {len(gathers)} resident.gather spans")
+        kinds = {}
+        for kind, sec, launches in self.folds:
+            acc = kinds.setdefault(kind, {"calls": 0, "s": 0.0, "launches": 0})
+            acc["calls"] += 1
+            acc["s"] += sec
+            acc["launches"] += launches
+        rounds_fold = [sec * 1e3 for kind, sec, _ in self.folds if kind == "round"]
+        return {"views": out, "folds": kinds,
+                "fold_ms_per_round": rounds_fold,
+                "gather_spans": len(gathers),
+                "stats": dict(self.views.stats)}
+
+
+def phase_views(card: str, plog, no_views: dict) -> dict:
+    """Phase 4's plane again, over the same log (its events are this plane's
+    seed), with the view arm, after the arm without views in the same call:
+    the same checks, and the views against a from-scratch scan."""
+    arm = ViewArm()
+    row = asyncio.run(drive_plane(
+        card, aggregates=PLANE_AGGREGATES, capacity=PLANE_CAPACITY,
+        rounds=PLANE_ROUNDS, dispatch="bucketed", seed=14, plog=plog,
+        views=arm))
+    row.pop("plog")
+    folds = row["views"]["folds"]
+    if folds.get("seed", {}).get("launches", 0) <= 0 or \
+            folds.get("round", {}).get("launches", 0) <= 0 or \
+            folds.get("backfill", {}).get("launches", 0) <= 0:
+        raise AssertionError(f"the view legs launched no scan reduction: {folds}")
+    row["refresh_events_per_s_without_views"] = no_views["refresh_events_per_s"]
+    # the same clock without the round that waited on V3's backfill
+    steady = {x["round"]: x for x in row["rounds"]
+              if not x["profiled"] and x["round"] != PLANE_ROUNDS // 2}
+    row["refresh_events_per_s_without_backfill_round"] = (
+        sum(x["events"] for x in steady.values())
+        / (sum(x["wall_ms"] for x in steady.values()) / 1e3))
+    log("phase11-views " + json.dumps(row))
+    return row
+
+
+class OneShotFaults:
+    """A duck-typed fault plane: ``corrupt.slab-row`` fires once; every
+    ``point`` is kept."""
+
+    def __init__(self):
+        self.armed = True
+        self.points: list = []
+
+    def corrupt_point(self, site: str) -> bool:
+        fire = self.armed and site == "corrupt.slab-row"
+        self.armed = self.armed and not fire
+        return fire
+
+    def point(self, site: str) -> None:
+        self.points.append(site)
+
+
+class FlightLog:
+    def __init__(self):
+        self.events: list = []
+
+    def record(self, kind, **fields):
+        self.events.append((kind, fields))
+
+
+def phase_faults(card: str) -> dict:
+    """A 65,536-aggregate plane with ``corrupt.slab-row`` armed once: after a
+    round the corrupted row differs from its closed form in exactly the
+    count's sign bit, its ordinal unchanged, and the dispatch point was
+    passed once a window."""
+    rng = np.random.default_rng(21)
+    n = 65536
+    plog = PlaneLog(n)
+    plog.append(np.repeat(np.arange(n, dtype=np.int64),
+                          1 + rng.binomial(7, 0.2, size=n)), rng)
+    faults, flight, ledger, signals = OneShotFaults(), FlightLog(), RoundLedger(), []
+
+    async def run():
+        plane = make_plane(plog, {"surge.replay.resident.capacity": n},
+                           signals, ledger, faults=faults, flight=flight)
+        await plane.start()
+        try:
+            plog.append(rng.integers(0, n, size=20_000), rng)
+            t0 = time.perf_counter()
+            while faults.armed:
+                if time.perf_counter() - t0 > 120:
+                    raise AssertionError("corrupt.slab-row never fired")
+                await asyncio.sleep(0.005)
+            victim = next(f["aggregate"] for k, f in flight.events
+                          if k == "fault.corrupt")
+            (row, ordinal), = plane.audit_pull([victim]).values()
+            return victim, row, ordinal
+        finally:
+            await plane.stop()
+
+    victim, row, ordinal = asyncio.run(run())
+    want = int(plog.n_events[int(victim[1:])])
+    flipped = int(np.asarray(row["count"], dtype=np.int32).view(np.uint32)
+                  ^ np.uint32(want))
+    windows = sum(kw["windows"] for kw in ledger.rounds)
+    if flipped != 1 << 31 or int(row["version"]) != want or ordinal != want:
+        raise AssertionError(f"corrupted row {victim}: {row}, ordinal {ordinal}, "
+                             f"closed form {want}")
+    if signals:
+        raise AssertionError(f"the fault plane's plane signalled {signals}")
+    if faults.points != ["resident.refresh.dispatch"] * windows or windows <= 0:
+        raise AssertionError(f"{len(faults.points)} dispatch points for "
+                             f"{windows} windows")
+    out = {"card": card, "aggregates": n, "victim": victim,
+           "flipped_bit": 31, "ordinal": ordinal, "windows": windows,
+           "dispatch_points": len(faults.points), "signals": signals}
+    log("phase11-faults " + json.dumps(out))
+    return out
+
+
+def scan_reduce_line(query: dict, views: dict | None) -> dict:
+    """The scan-reduce kernel's entry of the ``kernels`` line: its time at
+    the head case (the first chunk's all-ops scan), every case's time, bound,
+    plain and library time, and its launches on each path of this slice."""
+    rows = query["kernel_rows"]
+    head = rows[0]
+    folds = views["views"]["folds"] if views else {}
+    paths = {
+        "query_scan_segment": query["scan"]["launches"]["scan_reduce"],
+        "query_states_segment": query["states"]["launches"]["scan_reduce"],
+        **{f"view_plane_{k}": (folds[k]["launches"] if k in folds else None)
+           for k in ("seed", "round", "backfill")},
+    }
+    return {
+        "name": "scan_reduce", "route": "cuda",
+        "source": "surge_tpu_torch/csrc/scan_reduce.cu",
+        "replaces": ("no pallas_call: surge_tpu/replay/query.py:549-570 is an "
+                     "XLA scatter (the port's own kernel, for a float sum in "
+                     "event order)"),
+        "launches": total_launches(paths), "launches_by_path": paths,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "timed_at": head["case"],
+        "ms_by_case": {r["case"]: r["ms"] for r in rows},
+        "bound_ms_by_case": {r["case"]: r["bound_ms"] for r in rows},
+        "plain_ms_by_case": {r["case"]: r["plain_ms"] for r in rows},
+        "library_ms_by_case": {r["case"]: r["library_ms"] for r in rows},
+        "library_equal_by_case": {r["case"]: r["library_equal"] for r in rows},
+    }
+
+
 def total_launches(paths: dict) -> int | None:
     """The launches of the paths that ran in this call; None if none ran."""
     ran = [n for n in paths.values() if n is not None]
@@ -2580,7 +3260,7 @@ def total_launches(paths: dict) -> int | None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -2592,15 +3272,16 @@ def main() -> int:
         return 2
 
     from surge_tpu_torch import _build
-    from surge_tpu_torch.replay import fold_kernels
+    from surge_tpu_torch.replay import fold_kernels, scan_reduce
 
     card = card_line()
     log(f"phase0 card: {card}")
     build_s = _build.build_all()
     log(f"phase0 build_s: {json.dumps(build_s)}")
-    for name in ("tile_scan", "ragged_fold"):
+    for name in ("tile_scan", "ragged_fold", "scan_reduce"):
         log(_build.library_path(name).with_suffix(".log").read_text().strip())
     fold_kernels.load()
+    scan_reduce.load()
 
     work = tempfile.mkdtemp(prefix="chip-smoke-")
     try:
@@ -2624,7 +3305,7 @@ def run_phases(phases: set, card: str, work: str) -> int:
         clock[0] = now
 
     corpus = None
-    if phases & {1, 2, 5, 7, 9}:
+    if phases & {1, 2, 5, 7, 9, 11}:
         corpus = synth_counter_corpus(1_000_000, 100_000_000, seed=0)
         lap("corpus")
     windows = klist = nonres = None
@@ -2650,6 +3331,15 @@ def run_phases(phases: set, card: str, work: str) -> int:
     if 7 in phases:
         seg_restore = phase_restore_segment(card, corpus, work)
         lap("7")
+    query = None
+    if 11 in phases:
+        # phase 7's segment, or the same one written here
+        seg_path = (seg_restore["segment_path"] if seg_restore else
+                    os.path.join(work, "bench.scol"))
+        if seg_restore is None:
+            write_bench_segment(corpus, seg_path)
+        query = phase_query(card, corpus, seg_path)
+        lap("11-query")
     del corpus
     if 3 in phases:
         phase_resume_and_bank(card)
@@ -2681,6 +3371,13 @@ def run_phases(phases: set, card: str, work: str) -> int:
         windows["rows"].extend(plane_rows)
     if phases & {4, 6}:
         lap("4,6")
+    views = faults = None
+    if 11 in phases:
+        if plane is None:  # the arm without views runs here, in turns
+            plane = phase_plane(card)
+        views = phase_views(card, plane.pop("plog"), plane["main"])
+        faults = phase_faults(card)
+        lap("11-views,faults")
     log("phase_s " + json.dumps(phase_s))
 
     if windows is not None:
@@ -2722,6 +3419,11 @@ def run_phases(phases: set, card: str, work: str) -> int:
             **{f"nonresident_{m}": (nonres_paths["launches"][f"nonresident_{m}"][name]
                                     if nonres_paths else None)
                for m in ("counter", "shopping_cart")},
+            # this slice's paths: the state query, the view arm's plane
+            "query_states_segment": (query["states"]["launches"][name]
+                                     if query else None),
+            "view_plane_seed": launches(views, "seed_launches", name),
+            "view_plane_refresh": launches(views, "refresh_launches", name),
         } for name in fold_kernels.LAUNCHES}
         kernels = []
         for kind, replaces in (("dense", "surge_tpu/replay/pallas_fold.py:86"),
@@ -2795,6 +3497,8 @@ def run_phases(phases: set, card: str, work: str) -> int:
             "window_bound_ms_by_shape": {r["case"]: r["bound_ms"]
                                          for r in nonres["rows"] if "ms" in r},
         })
+        if query is not None:
+            kernels.append(scan_reduce_line(query, views))
         log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 
 Keys are dotted strings (``surge.replay.batch-size``). Resolution order:
 explicit overrides > environment (``SURGE_REPLAY_BATCH_SIZE``) > defaults. The
-``surge.replay.*`` keys below carry the reference's exact defaults, so one
+``surge.replay.*`` and ``surge.query.*`` keys below carry the reference's exact defaults, so one
 override dict drives both packages the same way.
 """
 
@@ -18,8 +18,9 @@ def _env_key(key: str) -> str:
     return key.upper().replace(".", "_").replace("-", "_")
 
 
-#: the ``surge.replay.*`` keys the replay engine, the store restore and the
-#: resident state plane read, with the reference's defaults (surge_tpu/config)
+#: the ``surge.replay.*`` and ``surge.query.*`` keys the replay engine, the
+#: store restore, the resident state plane, the query engine and the views
+#: read, with the reference's defaults (surge_tpu/config)
 DEFAULTS: dict[str, Any] = {
     # restore_from_events: "tpu" folds through the batched engine (on the
     # engine's device), "cpu" runs the scalar per-aggregate fold
@@ -84,6 +85,23 @@ DEFAULTS: dict[str, Any] = {
     # "bucketed" deals a round's lanes into pow2 length buckets, one fused
     # program per occupied bucket; "dense" folds one rectangle per round
     "surge.replay.resident.refresh-dispatch": "bucketed",  # bucketed | dense
+    # --- incremental materialized views + changefeeds (replay/views.py) ---
+    # per-view delta ring depth: how many fold rounds a changefeed resume
+    # watermark may lag before a subscription is answered with a one-shot
+    # reconciling snapshot instead of the missed deltas
+    "surge.replay.views.changefeed-rounds": 256,
+    # group cap of one materialized view (distinct aggregate ids or group-by
+    # keys); a view that overflows degrades to an error state
+    "surge.replay.views.max-groups": 1_048_576,
+    # --- the scan engine over columnar segments (replay/query.py) ---
+    # event-axis pad bucket of one scan: chunks pad up to power-of-two
+    # buckets at least this large
+    "surge.query.chunk-events": 65536,
+    # shard the scan's event axis over a mesh (the port has none: a mesh
+    # raises, see QueryEngine)
+    "surge.query.mesh": True,
+    # row cap of one QueryStates/ScanSegments reply
+    "surge.query.max-rows": 10_000,
 }
 
 

@@ -33,7 +33,7 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Iterator, Optional
+from typing import Iterable, Iterator, Optional
 
 import numpy as np
 
@@ -198,15 +198,22 @@ def _open(path: str):
     return f, header, os.fstat(f.fileno()).st_size
 
 
-def read_segment(path: str, partitions: Optional[set] = None
+def read_segment(path: str, partitions: Optional[set] = None,
+                 columns: Optional[Iterable[str]] = None
                  ) -> Iterator[ColumnarEvents]:
     """Stream the segment's chunks as ColumnarEvents (``frombuffer`` views
     of the column bytes), each with its global chunk ordinal
     (``source_ordinal``). ``partitions`` keeps only chunks recorded for
     those source partitions (chunks without one always pass); the payloads
-    of the rest are seeked past."""
+    of the rest are seeked past.
+
+    ``columns`` is the query engine's projection pushdown: when given, only
+    those union columns (plus the structural ``agg_idx``/``type_ids`` and the
+    id payload) are read, and every other column payload is seeked past. The
+    chunks then carry exactly the projected ``cols``."""
     if partitions is not None:
         partitions = {int(p) for p in partitions}
+    wanted = None if columns is None else set(columns)
     f, header, size = _open(path)
     with f:
         col_dtypes = {name: np.dtype(dt) for name, dt in header["columns"].items()}
@@ -233,6 +240,10 @@ def read_segment(path: str, partitions: Optional[set] = None
                          else dict(derived))
             arrays = {}
             for name, codec, stored_len, raw_len in meta["cols"]:
+                if (wanted is not None and name not in ("agg_idx", "type_ids")
+                        and name not in wanted):
+                    f.seek(stored_len, 1)  # projected out: never read
+                    continue
                 dtype = (c_agg if name == "agg_idx"
                          else c_type if name == "type_ids" else c_cols[name])
                 arrays[name] = np.frombuffer(

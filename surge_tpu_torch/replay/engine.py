@@ -33,6 +33,7 @@ caller's ``init_carry`` is copied, never written to.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field as dc_field
 from typing import Any, Callable, Iterable, Mapping, Optional, Sequence
@@ -442,10 +443,13 @@ class ReplayEngine:
     """
 
     def __init__(self, spec: ReplaySpec, config: Config | None = None,
-                 device=None) -> None:
+                 device=None, profiler=None) -> None:
         self.spec = spec
         self.config = config or default_config()
         self.device = _resolve_device(device)
+        # optional replay.profiler.ReplayProfiler: every hook below
+        # short-circuits on one `is None` without it
+        self.profiler = profiler
         self.time_chunk = self.config.get_int("surge.replay.time-chunk")
         self.min_time_window = self.config.get_int("surge.replay.min-time-window", 8)
         self.sort_by_length = self.config.get_bool("surge.replay.sort-by-length", True)
@@ -472,6 +476,10 @@ class ReplayEngine:
         # distinct (derived key, window shape) signatures the non-resident
         # windows dispatched: the reference compiles one program per entry
         self._signatures: set = set()
+        # the resident replays' shapes seen (list widths, lane batches,
+        # buckets): a new one is a "compile" in the profiler's split, where
+        # the reference compiles a program
+        self._resident_sigs: set = set()
         # per-bs device constants of the one-tile window work list
         self._window_lists: dict = {}
         # host-side phase accounting: seconds spent packing, uploading and
@@ -481,6 +489,13 @@ class ReplayEngine:
                       "densify_s": 0.0, "fold_s": 0.0, "pull_s": 0.0}
 
     # -- helpers ------------------------------------------------------------------------
+
+    def _fetch_stage(self):
+        """Profiler context for a device→host state pull (the fetch that
+        closes the chunk's device time); no-op without a profiler."""
+        if self.profiler is None:
+            return contextlib.nullcontext()
+        return self.profiler.stage("fetch")
 
     def num_compiles(self) -> int:
         """The distinct window signatures (derived key, packed shape, side
@@ -596,7 +611,11 @@ class ReplayEngine:
         guard = max(self.resident_tile_width(), _WIRE_GUARD_MIN)
         packed = np.pad(packed, ((0, guard), (0, 0)))
         side_flat = {k: np.pad(v, (0, guard)) for k, v in side_flat.items()}
-        self.stats["pack_s"] += time.perf_counter() - t0
+        pack_elapsed = time.perf_counter() - t0
+        self.stats["pack_s"] += pack_elapsed
+        if self.profiler is not None:
+            self.profiler.record("encode", pack_elapsed,
+                                 events=to_pack.num_events, kind="pack_resident")
         # lengths/starts are in the PACKED stream's aggregate-id order; the
         # grouped path then permutes the lane VIEW only (indirection)
         starts = np.zeros(b + 1, dtype=np.int64)
@@ -687,13 +706,15 @@ class ReplayEngine:
                 t.record_stream(main)
         upload_s = time.perf_counter() - t0
         self.stats["h2d_s"] += upload_s
+        wire_bytes = packed_b.nbytes + sum(v.nbytes for v in side_b.values())
+        if self.profiler is not None:
+            self.profiler.record("h2d", upload_s, kind="upload_resident",
+                                 bytes=wire_bytes)
         return ResidentCorpus(
             derived_key=dict(w.derived_key), flat_wire=flat_wire,
             flat_side=flat_side, starts=w.starts, lengths=w.lengths, perm=w.perm,
             starts_dev=starts_dev, lens_dev=lens_dev, b_pad=b_pad,
-            num_events=w.num_events,
-            wire_bytes=packed_b.nbytes + sum(v.nbytes for v in side_b.values()),
-            upload_s=upload_s)
+            num_events=w.num_events, wire_bytes=wire_bytes, upload_s=upload_s)
 
     def prepare_resident(self, colev: ColumnarEvents) -> ResidentCorpus:
         """Pack and upload the whole corpus once; see :meth:`replay_resident`."""
@@ -785,11 +806,29 @@ class ReplayEngine:
                                 num_aggregates=0, num_events=0, padded_events=0)
         init_sorted, ord_sorted = _apply_perm(resident.perm, init_carry,
                                               ordinal_base)
-        t0 = time.perf_counter()
-        slab, padded = self._dispatch_resident(resident, init_sorted, ord_sorted)
-        _sync(self.device)
-        t1 = time.perf_counter()
-        states = self._pull_states(slab, b, resident.perm, resident.cache)
+        prof = self.profiler
+        with (prof.replay_pass("replay.resident", aggregates=b,
+                               events=resident.num_events)
+              if prof is not None else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            if prof is None:
+                slab, padded = self._dispatch_resident(resident, init_sorted,
+                                                       ord_sorted)
+            else:
+                # a shape not seen before is the reference's compile; the
+                # range wraps the kernels' launches in a torch.profiler trace
+                sig = self._resident_signature(resident)
+                fresh = sig not in self._resident_sigs
+                self._resident_sigs.add(sig)
+                with prof.stage("compile" if fresh else "dispatch",
+                                aggregates=b):
+                    slab, padded = self._dispatch_resident(
+                        resident, init_sorted, ord_sorted)
+            _sync(self.device)
+            t1 = time.perf_counter()
+            with self._fetch_stage():
+                states = self._pull_states(slab, b, resident.perm,
+                                           resident.cache)
         self.stats["fold_s"] += t1 - t0
         self.stats["pull_s"] += time.perf_counter() - t1
         return ReplayResult(states=states, num_aggregates=b,
@@ -807,6 +846,16 @@ class ReplayEngine:
         init_sorted, ord_sorted = _apply_perm(resident.perm, init_carry,
                                               ordinal_base)
         return self._dispatch_resident(resident, init_sorted, ord_sorted)
+
+    def _resident_signature(self, resident: ResidentCorpus) -> tuple:
+        """The shapes a resident replay's work lists run at (the reference
+        compiles one program per such signature)."""
+        plan = self._plan_for(resident)
+        return (frozenset(resident.derived_key.items()), plan.width,
+                plan.bs_big, self._plan_cap(len(plan.big_i0)), plan.bs_small,
+                self._plan_cap(len(plan.small_i0)), resident.b_pad,
+                self._use_dense(resident, plan),
+                int(resident.flat_wire.shape[0]))
 
     def _pull_states(self, slab: Mapping[str, torch.Tensor], b: int,
                      perm: Optional[np.ndarray],
@@ -870,6 +919,8 @@ class ReplayEngine:
                 continue
             if limit is None:
                 self.stats["windows"] += k_n
+                if self.profiler is not None:
+                    self.profiler.count_windows(k_n)
             if use_dense:
                 words, sides = self._dense_tiles(resident, plan, bs, i0s, t_bases)
                 starts = None
@@ -1140,7 +1191,8 @@ class ReplayEngine:
         out_sorted = {f.name: np.empty((b,), dtype=f.dtype)
                       for f in self.spec.registry.state.fields}
         for lanes, slab in pieces:
-            piece_states = self._pull_states(slab, int(lanes.shape[0]), None)
+            with self._fetch_stage():
+                piece_states = self._pull_states(slab, int(lanes.shape[0]), None)
             for name, col in piece_states.items():
                 out_sorted[name][lanes] = col
         # fold_s spans the piece loop (uploads issued, folds queued) to the
@@ -1178,8 +1230,9 @@ class ReplayEngine:
                 derived_cols=enc.derived_cols,
                 ordinal_base=None if ordinal_base is None
                 else ordinal_base[start:stop])
-            for name in out:
-                out[name][start:stop] = carry[name].cpu().numpy()[: stop - start]
+            with self._fetch_stage():
+                for name in out:
+                    out[name][start:stop] = carry[name].cpu().numpy()[: stop - start]
             padded += bs * scanned
         return ReplayResult(states=out, num_aggregates=b,
                             num_events=int(enc.lengths.sum()), padded_events=padded)
@@ -1228,12 +1281,13 @@ class ReplayEngine:
             carry, scanned = self._fold_window(carry, enc.type_ids, enc.cols, bs,
                                                derived_cols=enc.derived_cols,
                                                ordinal_base=ob)
-            for name in out:
-                chunk_states = carry[name].cpu().numpy()[: stop - start]
-                if idxs is None:
-                    out[name][start:stop] = chunk_states
-                else:
-                    out[name][idxs] = chunk_states
+            with self._fetch_stage():
+                for name in out:
+                    chunk_states = carry[name].cpu().numpy()[: stop - start]
+                    if idxs is None:
+                        out[name][start:stop] = chunk_states
+                    else:
+                        out[name][idxs] = chunk_states
             padded += bs * scanned
             total_events += int(enc.lengths.sum())
         return ReplayResult(states=out, num_aggregates=b,
@@ -1314,10 +1368,22 @@ class ReplayEngine:
             self.stats["h2d_s"] += t2 - t1
             self.stats["windows"] += 1
             scanned += width
-            self._signatures.add((frozenset(wire.derived.items()), packed.shape,
-                                  tuple((k, v.shape) for k, v in sorted(side.items()))))
-            carry = self._fold_packed(carry, wire, words, sides, ord_base,
-                                      type_ids[:, s:e])
+            sig = (frozenset(wire.derived.items()), packed.shape,
+                   tuple((k, v.shape) for k, v in sorted(side.items())))
+            first_dispatch = sig not in self._signatures
+            self._signatures.add(sig)
+            if self.profiler is None:
+                carry = self._fold_packed(carry, wire, words, sides, ord_base,
+                                          type_ids[:, s:e])
+            else:
+                self.profiler.count_windows()
+                self.profiler.record("encode", t1 - t0, width=width)
+                self.profiler.record("h2d", t2 - t1, width=width)
+                with self.profiler.stage(
+                        "compile" if first_dispatch else "dispatch",
+                        width=width, batch=bs):
+                    carry = self._fold_packed(carry, wire, words, sides,
+                                              ord_base, type_ids[:, s:e])
         return carry, scanned
 
     def _fold_packed(self, carry: dict, wire: WireFormat, words: torch.Tensor,

@@ -38,15 +38,22 @@ partition's committed events below the partition watermark (mid-round rows of
 resident aggregates are folds of committed per-lane prefixes — valid
 bounded-stale states).
 
-Not carried here (ROADMAP.md, Queue 1 item 6): materialized views, the tracer's
-gather spans, the fault plane, the profiler hooks (item 8) and the mesh
-(item 9); passing ``tracer``, ``faults``, ``profiler`` or ``mesh`` raises.
+Hooks, as the reference plane's: materialized views (``attach_views``,
+``register_view``; every committed round and the seed fold into them, every
+purge drops their partials), the replay profiler (the round's ``refresh``
+umbrella, its ``encode``, and a ``compile``/``dispatch`` stage around each
+window), the tracer (one ``resident.gather`` span a drained read batch) and
+the fault plane (``corrupt.slab-row`` after a round, the
+``resident.refresh.dispatch`` point inside each window's executor call);
+``tracer`` and ``faults`` are duck-typed. Not carried: the mesh
+(ROADMAP.md, Queue 1, "Multi-device"); passing ``mesh`` raises.
 """
 
 from __future__ import annotations
 
 import asyncio
 import dataclasses
+import functools
 import threading
 import time
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
@@ -66,17 +73,10 @@ from surge_tpu_torch.replay import fold_kernels
 from surge_tpu_torch.replay.engine import (ReplayEngine, _resolve_device, _sync,
                                            make_batch_fold)
 from surge_tpu_torch.replay.ledger import shard_skew, waste_ratio
+from surge_tpu_torch.replay.query import MULTI_DEVICE
 
 __all__ = ["ResidentStatePlane"]
 
-#: hooks the reference plane takes that this port does not carry yet, with
-#: the ROADMAP.md (Queue 1) item that ports them
-_NOT_PORTED = {
-    "mesh": "item 9 (the mesh and sharded paths)",
-    "profiler": "item 8 (the profiler hooks)",
-    "tracer": "item 6 (the resident plane's tracer gather spans)",
-    "faults": "item 6 (the resident plane's fault plane)",
-}
 
 
 def _pow2(n: int, lo: int = 8) -> int:
@@ -137,12 +137,10 @@ class ResidentStatePlane(Controllable):
                  on_signal: Callable[[str, str], None] | None = None,
                  profiler=None, flight=None, ledger=None, tracer=None,
                  faults=None, device=None) -> None:
-        for name, hook in (("mesh", mesh), ("profiler", profiler),
-                           ("tracer", tracer), ("faults", faults)):
-            if hook is not None:
-                raise NotImplementedError(
-                    f"ResidentStatePlane(..., {name}=...) is not ported yet "
-                    f"(ROADMAP.md, Queue 1 {_NOT_PORTED[name]})")
+        if mesh is not None:
+            raise NotImplementedError(
+                f"ResidentStatePlane(..., mesh=...) is not ported yet "
+                f"({MULTI_DEVICE})")
         self.log = log
         self.events_topic = events_topic
         self.spec = spec
@@ -166,6 +164,16 @@ class ResidentStatePlane(Controllable):
         #: refresh-round ledger (duck-typed ``record_round`` /
         #: ``record_evict`` / ``record_gather``), or None
         self.ledger = ledger
+        #: replay.profiler.ReplayProfiler, or None (the seeding engine gets
+        #: it too)
+        self.profiler = profiler
+        #: tracer (duck-typed ``start_span``): the gather lane emits
+        #: "resident.gather" spans with leg.{coalesce,dispatch,fetch,decode}-ms
+        self.tracer = tracer
+        #: fault plane (duck-typed ``point`` / ``corrupt_point``): the
+        #: "resident.refresh.dispatch" point inside each window's executor
+        #: call, and "corrupt.slab-row" after a round
+        self._faults = faults
 
         self.capacity = max(
             self.config.get_int("surge.replay.resident.capacity", 65536), 8)
@@ -191,7 +199,8 @@ class ResidentStatePlane(Controllable):
         # the seeding engine on the plane's device; its tile_backend resolves
         # auto (the kernels on CUDA, the plain scan on the CPU) and raises for
         # a spec the kernels cannot fold
-        self.engine = ReplayEngine(spec, config=self.config, device=self.device)
+        self.engine = ReplayEngine(spec, config=self.config, device=self.device,
+                                   profiler=profiler)
         self._backend = self.engine.tile_backend
         # bucketed plans fold through K2 whenever the resolved backend is the
         # kernel (the reference needs an explicit tile-backend = pallas)
@@ -245,6 +254,10 @@ class ResidentStatePlane(Controllable):
         self._stopped = False  # a STOPPED plane must miss: its freshness view
         #                        (_last_ends) is frozen while the log moves on
         self._seeded = False
+        #: MaterializedViews (replay.views) riding this plane's refresh feed,
+        #: or None — every committed round folds into the registered views,
+        #: and every partition purge drops their partials
+        self._views = None
         self.stats = {"rounds": 0, "folded_events": 0, "evictions": 0,
                       "gathers": 0, "gathered_rows": 0, "fallbacks": 0}
         #: seconds of the last cold-start seed, by phase
@@ -504,6 +517,15 @@ class ResidentStatePlane(Controllable):
         self._watermarks.update(ends)
         self._seeded = True
         timing["scan_s"] = time.perf_counter() - t0
+        if self._views is not None and self._views.active_or_pending:
+            # the seed IS round zero for every registered view: fold the same
+            # scanned logs, anchored at the same end offsets (pending views
+            # activate here); seed_from_log's purge reconciles partitions
+            # re-anchored mid-seed, their view partials included
+            t0 = time.perf_counter()
+            self._views.fold_round(logs, part_of, dict(ends),
+                                   activate_pending=True)
+            timing["views_s"] = time.perf_counter() - t0
         if not logs:
             self._record_gauges()
             return
@@ -629,6 +651,36 @@ class ResidentStatePlane(Controllable):
         rows, _ = self._pull_positions(slab_sorted, inv)
         return rows
 
+    def _corrupt_resident_row(self) -> Optional[str]:
+        """Flip one bit in one LIVE resident slab row (the armed
+        ``corrupt.slab-row`` fault firing): the first non-bool field of the
+        first resident aggregate gets its top byte's sign bit flipped (a
+        bool field would be negated), and the row's fold ordinal is kept, so
+        it looks like a validly-folded row. Returns the corrupted aggregate
+        id, or None when nothing is resident."""
+        if not self._dir:
+            return None
+        agg = next(iter(self._dir))
+        slot = self._dir[agg]
+        rows, ords = self._pull_positions(None, np.asarray([slot], dtype=np.int32))
+        victim = next((f.name for f in self._fields
+                       if f.dtype != np.bool_), self._fields[0].name)
+        vals = {}
+        for k in rows:
+            v = np.asarray(rows[k][:1], dtype=self._dev_dts[k]).copy()
+            if k == victim:
+                if v.dtype == np.bool_:
+                    v[0] = not v[0]
+                else:
+                    v.view(np.uint8)[-1] ^= 0x80
+            vals[k] = self._upload(v)
+        self._seed_scatter(vals, np.zeros((1,), dtype=np.int32),
+                           np.asarray([slot], dtype=np.int32),
+                           np.asarray([int(ords[0])], dtype=np.int32))
+        logger.warning("fault plane corrupted resident row of %r "
+                       "(field %s)", agg, victim)
+        return agg
+
     def prime(self, watermarks: Dict[int, int]) -> None:
         """Fast-forward fold watermarks after an out-of-band seed covered the
         offsets (only valid together with a slab seed of the same
@@ -663,7 +715,54 @@ class ResidentStatePlane(Controllable):
                                revoked=removed, resident=len(self._dir))
         self._record_gauges()
 
+    # -- materialized views (replay.views) ----------------------------------------------
+
+    def attach_views(self, views) -> None:
+        """Hand the plane a :class:`~surge_tpu_torch.replay.views.MaterializedViews`:
+        every committed refresh round (and the seed) folds into it, and every
+        re-anchor path drops its per-partition partials."""
+        self._views = views
+
+    def register_view(self, vdef) -> None:
+        """Register a view against this plane's feed. Before the seed it
+        activates (the seed fold covers it from offset 0); on a seeded plane
+        it parks PENDING and the refresh loop backfills the already-folded
+        prefix between rounds."""
+        if self._views is None:
+            raise RuntimeError(
+                "no MaterializedViews attached to this resident plane")
+        self._views.register(vdef, active=not self._seeded)
+
+    def _backfill_pending_views(self) -> None:
+        """Executor half of register-while-running: re-read each assigned
+        partition's committed prefix [0, watermark) and fold it into every
+        pending view. Runs between refresh rounds; partitions whose anchor
+        generation moved meanwhile are dropped from the commit."""
+        views = self._views
+        gens = {p: self._anchor_gen.get(p, 0) for p in self.partitions}
+        wms = {p: self._watermarks.get(p, 0) for p in gens}
+        logs: Dict[str, list] = {}
+        part_of: Dict[str, int] = {}
+        for p, wm in wms.items():
+            if wm <= 0:
+                continue
+            for rec in page_keyed_records(self.log, self.events_topic, p,
+                                          upto=wm):
+                ev = self._encode_checked(rec.key, rec.value, p)
+                if ev is None:
+                    logs.pop(rec.key, None)
+                    continue
+                logs.setdefault(rec.key, []).append(ev)
+                part_of[rec.key] = p
+        committed = {p: wm for p, wm in wms.items()
+                     if p in self._watermarks
+                     and self._anchor_gen.get(p, 0) == gens[p]}
+        for name in [v["view"] for v in views.summary() if not v["active"]]:
+            views.fold_view_backfill(name, logs, part_of, committed)
+
     def _purge_partition(self, p: int) -> None:
+        if self._views is not None:
+            self._views.drop_partition(p)
         for agg in [a for a, ap in self._agg_part.items() if ap == p]:
             slot = self._dir.pop(agg, None)
             if slot is not None:
@@ -742,6 +841,10 @@ class ResidentStatePlane(Controllable):
         into the slab (admitting/evicting as needed), advance watermarks.
         Returns False when nothing was pending."""
         loop = asyncio.get_running_loop()
+        if self._views is not None and self._views.has_pending:
+            # register-while-running: backfill the committed prefix into the
+            # pending views BETWEEN rounds (the loop awaits; no fold races)
+            await loop.run_in_executor(None, self._backfill_pending_views)
         wms = {p: self._watermarks.setdefault(p, 0)
                for p in list(self.partitions)}
         gens = {p: self._anchor_gen.get(p, 0) for p in wms}
@@ -789,18 +892,45 @@ class ResidentStatePlane(Controllable):
                     self._watermarks[p] = 0
                     self._anchor_gen[p] = self._anchor_gen.get(p, 0) + 1
             raise
+        committed: Dict[int, int] = {}
         for p, recs in batches.items():
             # skip partitions revoked OR re-anchored while the round flew
             if (p in self._watermarks
                     and self._anchor_gen.get(p, 0) == gens[p]):
                 self._watermarks[p] = recs[-1].offset + 1
+                committed[p] = recs[-1].offset + 1
+        if (self._views is not None and committed
+                and self._views.active_or_pending):
+            # the views' leg of the round rides the same decoded logs, under
+            # the same gen fence the slab commit just passed, off the loop;
+            # fold_round never raises (a failing view degrades alone)
+            await loop.run_in_executor(
+                None, self._views.fold_round, logs, part_of, committed)
         elapsed = time.perf_counter() - t0
         self.stats["rounds"] += 1
         self.stats["folded_events"] += n_events
         if self.metrics is not None:
             self.metrics.resident_fold_round_timer.record_ms(elapsed * 1000.0)
+        if self.profiler is not None:
+            # encode (the host decode and pack) reported separately; the
+            # umbrella `refresh` covers the round, its measured legs as
+            # attributes
+            self.profiler.record("encode", enc_s, kind="refresh")
+            self.profiler.record(
+                "refresh", elapsed, events=n_events, aggregates=len(ids),
+                **{"leg.decode-ms": round(feed_s * 1000.0, 3),
+                   "leg.dispatch-ms": round(
+                       self._round_acc["dispatch_s"] * 1000.0, 3)})
         self._observe_round(n_events, feed_s, enc_s)
         self._record_gauges()
+        if (self._faults is not None
+                and self._faults.corrupt_point("corrupt.slab-row")):
+            # rot one live row AFTER the round committed: the log stays
+            # right, the slab lies (what only the shadow-replay audit sees)
+            corrupted = self._corrupt_resident_row()
+            if corrupted is not None and self.flight is not None:
+                self.flight.record("fault.corrupt", site="corrupt.slab-row",
+                                   aggregate=corrupted)
         return True
 
     def _observe_round(self, n_events: int, feed_s: float,
@@ -1143,6 +1273,7 @@ class ResidentStatePlane(Controllable):
         else:
             wins = payload
             sig = ("refresh", lanes_b, width)
+        fresh = sig not in self._signatures
         self._signatures.add(sig)
         acc = self._round_acc
         acc["batch"] = lanes_b
@@ -1157,10 +1288,22 @@ class ResidentStatePlane(Controllable):
                 lane_slots, counts,
                 (starts + win[0]).astype(np.int32) if mode == "rag" else None,
                 admission if w == 0 else None, fields)
+            run = functools.partial(self._run_window, mode, shared, slab, ords,
+                                    width, table, win, payload)
+            if self._faults is not None:
+                # the stall-anatomy site, INSIDE the executor call so an
+                # armed delay lands in the dispatch stage's measured time
+                run = functools.partial(
+                    (lambda f, thunk: (f.point("resident.refresh.dispatch"),
+                                       thunk())[1]), self._faults, run)
             d0 = time.perf_counter()
-            await loop.run_in_executor(
-                None, self._run_window, mode, shared, slab, ords, width,
-                table, win, payload)
+            if self.profiler is None:
+                await loop.run_in_executor(None, run)
+            else:
+                with self.profiler.stage("compile" if fresh else "dispatch",
+                                         width=width, batch=lanes_b):
+                    await loop.run_in_executor(None, run)
+                fresh = False
             acc["windows"] += 1
             acc["dispatched"] += lanes_b * width
             acc["occupied"] += int(counts.sum())
@@ -1522,6 +1665,8 @@ class ResidentStatePlane(Controllable):
                     reads=len(calls), rows=k, wait_us=wait_s * 1e6,
                     dispatch_us=disp_s * 1e6, fetch_us=fetch_s * 1e6,
                     decode_us=dec_s * 1e6)
+            if self.tracer is not None:
+                self._emit_gather_span(wait_s, disp_s, fetch_s, dec_s, k)
         for fut, single, ids, refs, start in calls:
             if fut.done():
                 continue
@@ -1559,6 +1704,24 @@ class ResidentStatePlane(Controllable):
             except Exception as exc:  # noqa: BLE001 — decode bug
                 if not fut.done():
                     fut.set_exception(exc)
+
+    def _emit_gather_span(self, wait_s: float, disp_s: float, fetch_s: float,
+                          dec_s: float, rows: int) -> None:
+        """One ``resident.gather`` span per drained batch, its legs as
+        ``leg.*-ms`` attributes, retro-dated on both clocks to the measured
+        interval."""
+        total = wait_s + disp_s + fetch_s + dec_s
+        span = self.tracer.start_span("resident.gather")
+        span.start_time = time.time() - total
+        span.start_mono = time.monotonic() - total
+        try:
+            span.set_attribute("leg.coalesce-ms", round(wait_s * 1000.0, 3))
+            span.set_attribute("leg.dispatch-ms", round(disp_s * 1000.0, 3))
+            span.set_attribute("leg.fetch-ms", round(fetch_s * 1000.0, 3))
+            span.set_attribute("leg.decode-ms", round(dec_s * 1000.0, 3))
+            span.set_attribute("rows", rows)
+        finally:
+            span.finish()  # unconditional: a leaked span pins its trace
 
     def _state_of(self, aggregate_id: str, record: Mapping[str, Any],
                   _j: int) -> Any:

@@ -320,7 +320,7 @@ def test_auto_on_cuda_without_kernel_step_raises(monkeypatch):
 
 def test_replay_keys_and_defaults_match_the_reference():
     for key, value in DEFAULTS.items():
-        assert key.startswith("surge.replay.")
+        assert key.startswith(("surge.replay.", "surge.query."))
         assert JDEFAULTS[key] == value, key
     cfg = Config().with_overrides(surge_replay_time_chunk=99)
     assert cfg.get_int("surge.replay.time-chunk") == 99

@@ -468,10 +468,15 @@ def test_plane_without_a_card_raises(monkeypatch):
     # auto resolves to the plain scan on the CPU: bucketed plans fold as
     # windows, as the reference's default arm does
     assert plane._backend == "xla" and not plane._ragged
-    for name in ("mesh", "profiler", "tracer", "faults"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ResidentStatePlane(log, TOPIC, counter.make_replay_spec(),
-                               device="cpu", **{name: object()}, **kw)
+    # only the mesh is left unported; the other hooks are duck-typed
+    with pytest.raises(NotImplementedError, match="Multi-device"):
+        ResidentStatePlane(log, TOPIC, counter.make_replay_spec(),
+                           device="cpu", mesh=object(), **kw)
+    for name in ("profiler", "tracer", "faults"):
+        hook = object()
+        plane = ResidentStatePlane(log, TOPIC, counter.make_replay_spec(),
+                                   device="cpu", **{name: hook}, **kw)
+        assert getattr(plane, "_faults" if name == "faults" else name) is hook
 
 
 def test_plain_window_fold_under_the_kernel_backend_equals_the_plain_scan():
