@@ -77,6 +77,15 @@ first. Phases:
 10. ``replay_columnar`` on 1M carts and on the counter corpus cut to 200k
    aggregates / 20M events, against the walk or the closed form and, on a
    subset, the plain eager scan; events/s, windows, K1 launches;
+11. the analytics plane on phase 7's segment: the scan-reduce kernel held to
+   its plain twin byte for byte on the scans the engine gives it (the first
+   chunk's queries, 500k bank accounts' float columns, ``group_by type_id``
+   over float sums, one aggregate of millions of events among 65,536; the
+   same ``group_by`` over 22M bank events held to the numpy oracle), its
+   time beside its byte bound, its float sums' serial floor, the library
+   call and, with ``--baseline``, an earlier tree's kernel; ``scan_segment``
+   (all ops, and ``group_by type_id``) and ``query_states_segment`` over the
+   16 chunks; the views on phase 4's plane, and the plane's fault hooks;
 then one JSON line of every kernel's numbers, the card line, and a last line
 ``{"ok": true, "device": {...}}``.
 
@@ -2688,14 +2697,15 @@ def query_cases() -> dict:
     }
 
 
-def bank_query(predicate: bool):
+def bank_query(predicate: bool, group_by: str | None = None):
     from surge_tpu_torch.replay.query import Aggregate as A
     from surge_tpu_torch.replay.query import Predicate as P
     from surge_tpu_torch.replay.query import ScanQuery as Q
 
     return Q(aggregates=(A("count"), A("sum", "new_balance"),
                          A("min", "new_balance"), A("max", "new_balance")),
-             predicates=(P("new_balance", ">", 1000.5),) if predicate else ())
+             predicates=(P("new_balance", ">", 1000.5),) if predicate else (),
+             group_by=group_by)
 
 
 def capture_scan(eng, colev, query) -> tuple[dict, dict]:
@@ -2764,60 +2774,216 @@ def scan_bound_ms(inp: dict, n: int) -> float:
     return total / HBM_BYTES_PER_S * 1e3
 
 
-def check_scan_case(label: str, eng, colev, query) -> dict:
-    """The scan's reduction inputs through the kernel and its plain version:
-    byte for byte, and their times beside the bound and the library call."""
+def load_baseline(tree: str, work: str):
+    """The scan-reduce wrapper of another tree (an earlier commit unpacked,
+    ``--baseline``): its ``csrc/scan_reduce.cu`` built with this tree's
+    flags into ``work`` and its ``replay/scan_reduce.py`` loaded as a module
+    of its own, so the two kernels run on the same inputs in one call."""
+    import importlib.util
+    from unittest import mock
+
+    from surge_tpu_torch import _build
+
+    src = os.path.join(tree, "surge_tpu_torch", "csrc", "scan_reduce.cu")
+    lib = os.path.join(work, "libbaseline_scan_reduce.so")
+    out = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, src],
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise RuntimeError(f"the baseline's scan_reduce.cu does not build:\n{out.stdout}")
+    spec = importlib.util.spec_from_file_location(
+        "baseline_scan_reduce",
+        os.path.join(tree, "surge_tpu_torch", "replay", "scan_reduce.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with mock.patch.object(_build, "library", lambda name: lib):
+        mod.load()
+    log("phase11 baseline: " + json.dumps({"tree": tree, "ptxas": out.stdout.strip()}))
+    return mod
+
+
+def fadd_latency_ns() -> float:
+    """One dependent ``add.rn.ftz.f32``'s latency on this card: a one-thread
+    chain of 2^22 adds, timed (the unit of a float sum's serial floor)."""
     import torch
 
-    from surge_tpu_torch.replay.scan_reduce import scan_reduce, scan_reduce_reference
+    from surge_tpu_torch.replay.scan_reduce import fadd_chain
 
+    steps = 1 << 22
+    dev = torch.device("cuda")
+    if float(fadd_chain(steps, dev).item()) != float(steps):
+        raise AssertionError("fadd_chain: the chain's sum is wrong")
+    return device_ms(lambda: fadd_chain(steps, dev), 3, 1) * 1e6 / steps
+
+
+def pass_device_ms(fn, calls: int = 5) -> dict:
+    """Device milliseconds a call of ``fn`` spends in each scan-reduce pass,
+    from a ``torch.profiler`` trace of ``calls`` calls, with the launches the
+    trace holds (it may hold fewer than were made; the time is per traced
+    launch)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from surge_tpu_torch.replay.scan_reduce import PASSES
+
+    kernels = {"scan_plan": PASSES[0], "scan_tiles": PASSES[1],
+               "scan_spans": PASSES[2], "scan_long": PASSES[3]}
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for evt in prof.key_averages():
+        name = next((p for k, p in kernels.items() if k in evt.key), None)
+        if name is None:
+            continue
+        total = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+        out[name] = {"ms": total / max(evt.count, 1) / 1e3, "traced": evt.count}
+    return out
+
+
+def check_scan_case(label: str, eng, colev, query, fadd_ns: float,
+                    baseline=None, oracle: bool = False) -> dict:
+    """The scan's reduction inputs through the kernel and its plain twin:
+    byte for byte, and their times beside the bound, the library call and,
+    with ``baseline``, an earlier tree's kernel on the same inputs (in
+    turns: baseline, kernel, kernel, baseline). ``oracle`` holds the
+    engine's whole scan to the numpy ``scan_reference`` instead, and times
+    no plain twin (a float sum's twin steps one position a call: minutes at
+    millions of events a group). A case with a float sum also gives its
+    serial floor: the longest float-summed span times one add's latency."""
+    import torch
+
+    from surge_tpu_torch.replay import scan_reduce as sr
+    from surge_tpu_torch.replay.query import scan_reference
+
+    reset_launches()
     inp, _ = capture_scan(eng, colev, query)
+    launches = dict(sr.LAUNCHES)
+    if any(launches[p] != 1 for p in sr.PASSES) or launches["fadd_chain"]:
+        raise AssertionError(f"scan_reduce {label}: launches {launches}, not one a pass")
     n = colev.num_events
     args = (inp["mask"], inp["cols"], inp["ops"], inp["offsets"], inp["order"])
-    count, outs = scan_reduce(*args)
-    pcount, pouts = scan_reduce_reference(*args)
+    count, outs = sr.scan_reduce(*args)
     torch.cuda.synchronize()
     err = 0.0
-    for k, (a, b) in enumerate(zip([count] + outs, [pcount] + pouts)):
-        a, b = a.cpu().numpy(), b.cpu().numpy()
+    if oracle:
+        got = eng.scan_chunks([colev], query)
+        want = scan_reference([colev], query, eng.registry)
+        pairs = [(got.columns[k], want.columns[k]) for k in sorted(want.columns)]
+        if got.aggregate_ids != want.aggregate_ids or set(got.columns) != set(want.columns):
+            raise AssertionError(f"scan_reduce {label}: ids or columns differ "
+                                 f"from scan_reference")
+    else:
+        t0 = time.perf_counter()
+        pcount, pouts = sr.scan_reduce_reference(*args)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        pairs = [(a.cpu().numpy(), b.cpu().numpy())
+                 for a, b in zip([count] + outs, [pcount] + pouts)]
+    for k, (a, b) in enumerate(pairs):
         if a.tobytes() != b.tobytes():
             bad = np.flatnonzero(a.view(np.uint32) != b.view(np.uint32))[:5]
             raise AssertionError(f"scan_reduce {label}: output {k} differs from "
-                                 f"the plain version at groups {bad}: "
-                                 f"{a[bad]} != {b[bad]}")
+                                 f"the {'oracle' if oracle else 'plain version'} "
+                                 f"at groups {bad}: {a[bad]} != {b[bad]}")
         both_nan = np.isnan(a) & np.isnan(b) if a.dtype.kind == "f" else False
         diff = np.where(both_nan, 0.0, np.abs(a.astype(np.float64) - b.astype(np.float64)))
         err = max(err, float(diff.max()) if diff.size else 0.0)
     lib = scan_library(inp, n)
     lib_out = lib()
     torch.cuda.synchronize()
-    # a slow case (a few huge groups, each one thread's serial walk) is
-    # timed on fewer launches
-    t0 = time.perf_counter()
-    scan_reduce(*args)
-    torch.cuda.synchronize()
-    reps = (5, 3) if time.perf_counter() - t0 < 0.05 else (2, 1)
+
+    def reps(fn):
+        # a slow call (the baseline's serial walks) is timed on fewer launches
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        return (5, 3) if took < 0.05 else (2, 1) if took < 2.0 else (1, 1)
+
+    kernel = lambda: sr.scan_reduce(*args)  # noqa: E731
     row = {"case": label, "events": n, "groups": inp["offsets"].shape[0] - 1,
            "outputs": inp["ops"], "ordered": inp["order"] is None,
-           "matched": int(count.sum()),
-           "max_abs_err": err,
-           "ms": device_ms(lambda: scan_reduce(*args), *reps),
-           "plain_ms": cuda_ms(lambda: scan_reduce_reference(*args), 3, 1),
-           "library_ms": device_ms(lib, 5, 3),
-           "library_equal": all(a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
-                                for a, b in zip(lib_out, [count] + outs)),
-           "bound_ms": scan_bound_ms(inp, n), "bound_by": "bytes"}
+           "matched": int(count.sum()), "checked_against":
+           "scan_reference" if oracle else "plain twin",
+           "max_abs_err": err, "launches": launches}
+    if baseline is None:
+        row["ms"] = device_ms(kernel, *reps(kernel))
+    else:
+        old = lambda: baseline.scan_reduce(*args)  # noqa: E731
+        old_reps = reps(old)
+        b1 = device_ms(old, *old_reps)
+        k1 = device_ms(kernel, *reps(kernel))
+        k2 = device_ms(kernel, *reps(kernel))
+        b2 = device_ms(old, *old_reps)
+        row.update(ms=(k1 + k2) / 2, ms_turns=[k1, k2],
+                   baseline_ms=(b1 + b2) / 2, baseline_ms_turns=[b1, b2])
+        bcount, bouts = baseline.scan_reduce(*args)
+        row["baseline_equal"] = all(
+            x.cpu().numpy().tobytes() == y.cpu().numpy().tobytes()
+            for x, y in zip([bcount] + bouts, [count] + outs))
+    row["pass_ms"] = pass_device_ms(kernel)
+    row.update(
+        # a twin that steps a long float chain takes seconds: timed once
+        plain_ms=None if oracle else cuda_ms(lambda: sr.scan_reduce_reference(*args),
+                                             3 if plain_s < 2.0 else 1, 1),
+        library_ms=device_ms(lib, 5, 3),
+        library_equal=all(a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+                          for a, b in zip(lib_out, [count] + outs)),
+        bound_ms=scan_bound_ms(inp, n), bound_by="bytes")
+    fsum = any(c.dtype.is_floating_point and op == "sum"
+               for c, op in zip(inp["cols"], inp["ops"]))
+    if fsum:
+        offs = inp["offsets"].cpu().numpy().astype(np.int64)
+        longest = int((offs[1:] - offs[:-1]).max())
+        row.update(longest_float_span=longest, fadd_ns=fadd_ns,
+                   serial_floor_ms=longest * fadd_ns * 1e-6)
     log("phase11-kernel " + json.dumps(row))
     return row
 
 
-def phase_query(card: str, corpus, seg_path: str) -> dict:
-    """The scan-reduce kernel against its plain version on the scans of the
+def skewed_chunk(chunk0, huge: int, seed: int):
+    """The first chunk with one aggregate of ``huge`` events put in the
+    middle of its 65,536 (the counter's columns, its ordinal derived)."""
+    from surge_tpu_torch.codec.tensor import ColumnarEvents
+
+    rng = np.random.default_rng(seed)
+    mid = chunk0.num_aggregates // 2
+    cut = int(np.searchsorted(chunk0.agg_idx, mid))
+    big = {"increment_by": rng.integers(0, 4, size=huge).astype(np.int32)}
+    cols = {k: np.concatenate([v[:cut], big[k] if k in big else
+                               np.zeros(huge, v.dtype), v[cut:]])
+            for k, v in chunk0.cols.items()}
+    agg_idx = np.concatenate([chunk0.agg_idx[:cut], np.full(huge, mid, np.int32),
+                              chunk0.agg_idx[cut:] + 1]).astype(np.int32)
+    type_ids = np.concatenate([chunk0.type_ids[:cut],
+                               rng.integers(0, 2, size=huge).astype(np.int32),
+                               chunk0.type_ids[cut:]])
+    ids = (None if chunk0.aggregate_ids is None else list(chunk0.aggregate_ids[:mid])
+           + ["skew-huge"] + list(chunk0.aggregate_ids[mid:]))
+    return ColumnarEvents(num_aggregates=chunk0.num_aggregates + 1, agg_idx=agg_idx,
+                          type_ids=type_ids, cols=cols,
+                          derived_cols=dict(chunk0.derived_cols), aggregate_ids=ids)
+
+
+#: phase 11's skewed case: one aggregate of this many events among the
+#: first chunk's 65,536
+SKEW_EVENTS = 4_000_000
+
+
+def phase_query(card: str, corpus, seg_path: str, baseline=None) -> dict:
+    """The scan-reduce kernel against its plain twin on the scans of the
     segment's first chunk (65,536 aggregates), phase 3's 500k bank accounts
-    (float sums, mins and maxes; once with NaN), and a 2**24 + 1 predicate;
-    then ``scan_segment`` over the 16-chunk segment against the numpy
-    ``scan_reference``, and ``query_states_segment`` against the closed
-    form."""
+    (float sums, mins and maxes; once with NaN), a 2**24 + 1 predicate, a
+    ``group_by type_id`` of float sums over 2,000 bank accounts, and the
+    first chunk with one aggregate of ``SKEW_EVENTS`` events; the same
+    ``group_by`` over the 500k accounts against the numpy
+    ``scan_reference`` (each time beside ``baseline``'s kernel, when given);
+    then ``scan_segment`` over the 16-chunk segment (all ops, and
+    ``group_by type_id``) against ``scan_reference``, and
+    ``query_states_segment`` against the closed form."""
     import torch
 
     from surge_tpu_torch.codec.tensor import ColumnarEvents
@@ -2831,8 +2997,12 @@ def phase_query(card: str, corpus, seg_path: str) -> dict:
 
     spec = counter.make_replay_spec()
     qeng = QueryEngine(spec)
+    fadd_ns = fadd_latency_ns()
+    log("phase11 fadd_ns: " + json.dumps({"card": card, "fadd_ns": fadd_ns}))
+    check = lambda *a, **kw: check_scan_case(*a, fadd_ns=fadd_ns,  # noqa: E731
+                                             baseline=baseline, **kw)
     chunk0 = next(read_segment(seg_path))
-    rows = [check_scan_case(f"counter chunk0 {name}", qeng, chunk0, q)
+    rows = [check(f"counter chunk0 {name}", qeng, chunk0, q)
             for name, q in query_cases().items()]
     # 2**24 + 1 compares as 2**24 (float32 predicate values, as the reference)
     big = ColumnarEvents(
@@ -2844,52 +3014,41 @@ def phase_query(card: str, corpus, seg_path: str) -> dict:
         aggregate_ids=chunk0.aggregate_ids)
     q24 = ScanQuery(aggregates=query_cases()["typed"].aggregates,
                     predicates=(Predicate("increment_by", "==", (1 << 24) + 1),))
-    rows.append(check_scan_case("counter chunk0 2^24+1", qeng, big, q24))
+    rows.append(check("counter chunk0 2^24+1", qeng, big, q24))
     want24 = int((big.cols["increment_by"] == (1 << 24)).sum())
     if rows[-1]["matched"] != want24:
         raise AssertionError(f"2^24 + 1 matched {rows[-1]['matched']} events, "
                              f"not the {want24} at 2^24")
     bcol = bank_corpus(500_000, seed=5)
     beng = QueryEngine(bank_account.make_replay_spec())
-    rows.append(check_scan_case("bank 500k floats", beng, bcol, bank_query(False)))
-    rows.append(check_scan_case("bank 500k floats filtered", beng, bcol,
-                                bank_query(True)))
+    rows.append(check("bank 500k floats", beng, bcol, bank_query(False)))
+    rows.append(check("bank 500k floats filtered", beng, bcol, bank_query(True)))
     nan_cols = dict(bcol.cols)
     nan_cols["new_balance"] = bcol.cols["new_balance"].copy()
     nan_cols["new_balance"][::997] = np.nan
     bnan = ColumnarEvents(num_aggregates=bcol.num_aggregates, agg_idx=bcol.agg_idx,
                           type_ids=bcol.type_ids, cols=nan_cols)
-    rows.append(check_scan_case("bank 500k NaN", beng, bnan, bank_query(False)))
-    del bcol, bnan, nan_cols
+    rows.append(check("bank 500k NaN", beng, bnan, bank_query(False)))
+    del bnan, nan_cols
+    # this slice's cases: few large groups with float sums (two groups in
+    # unsorted event order, each one serial chain), and a skewed span
+    rows.append(check("bank 2k group_by type_id", beng, bank_corpus(2_000, seed=6),
+                      bank_query(False, group_by="type_id")))
+    rows.append(check("bank 500k group_by type_id", beng, bcol,
+                      bank_query(False, group_by="type_id"), oracle=True))
+    del bcol
+    rows.append(check(f"counter chunk0 skewed {SKEW_EVENTS}", qeng,
+                      skewed_chunk(chunk0, SKEW_EVENTS, seed=7), query_cases()["all_ops"]))
     torch.cuda.empty_cache()
 
-    # scan_segment over the 16 chunks (the main path of a ScanQuery)
-    q = query_cases()["all_ops"]
+    # scan_segment over the 16 chunks (the main path of a ScanQuery), with
+    # each aggregate a group and with group_by type_id (four groups across
+    # every chunk, each chunk's groups not in event order)
+    group_by = ScanQuery(aggregates=query_cases()["all_ops"].aggregates,
+                         group_by="type_id")
+    seg = scan_segment_arm(card, spec, seg_path, "all_ops", query_cases()["all_ops"])
+    seg_gb = scan_segment_arm(card, spec, seg_path, "group_by_type_id", group_by)
     seg_eng = QueryEngine(spec)
-    reset_launches()
-    t0 = time.perf_counter()
-    got = seg_eng.scan_segment(seg_path, q)
-    wall = time.perf_counter() - t0
-    scan_launches = {**fold_kernels.LAUNCHES, **scan_reduce.LAUNCHES}
-    if scan_launches["scan_reduce"] != got.chunks or \
-            got.chunks != segment_info(seg_path)["num_chunks"]:
-        raise AssertionError(f"scan_segment: {got.chunks} chunks, launches "
-                             f"{scan_launches}")
-    t1 = time.perf_counter()
-    want = scan_reference(read_segment(seg_path, columns=q.columns_needed()), q,
-                          spec.registry)
-    oracle_s = time.perf_counter() - t1
-    if got.aggregate_ids != want.aggregate_ids or set(got.columns) != set(want.columns):
-        raise AssertionError("scan_segment: ids or columns differ from scan_reference")
-    for name, col in want.columns.items():
-        if got.columns[name].tobytes() != col.tobytes():
-            raise AssertionError(f"scan_segment: {name} differs from scan_reference")
-    seg = {"card": card, "query": "all_ops", "chunks": got.chunks,
-           "events": got.scanned_events, "matched": got.matched_events,
-           "wall_s": wall, "scan_events_per_sec": got.scanned_events / wall,
-           "stages_s": dict(seg_eng.stage_s), "launches": scan_launches,
-           "oracle_chunks": list(range(got.chunks)), "oracle_s": oracle_s}
-    log("phase11-scan " + json.dumps(seg))
 
     # query_states_segment: fold (K1, one launch a window), filter, project
     reng = ReplayEngine(spec, config=Config())
@@ -2919,7 +3078,49 @@ def phase_query(card: str, corpus, seg_path: str) -> dict:
               "events_per_sec": res.scanned_events / wall, "windows": windows,
               "launches": st_launches}
     log("phase11-states " + json.dumps(states))
-    return {"kernel_rows": rows, "scan": seg, "states": states}
+    return {"kernel_rows": rows, "scan": seg, "scan_group_by": seg_gb,
+            "states": states}
+
+
+def scan_segment_arm(card: str, spec, seg_path: str, name: str, q) -> dict:
+    """``QueryEngine.scan_segment`` over every chunk of the segment, its
+    launches (one of each scan-reduce pass a chunk, nothing else) and its
+    result against the numpy ``scan_reference``."""
+    from surge_tpu_torch.log.columnar import read_segment, segment_info
+    from surge_tpu_torch.replay import fold_kernels, scan_reduce
+    from surge_tpu_torch.replay.query import QueryEngine, scan_reference
+
+    seg_eng = QueryEngine(spec)
+    reset_launches()
+    t0 = time.perf_counter()
+    got = seg_eng.scan_segment(seg_path, q)
+    wall = time.perf_counter() - t0
+    launches = {**fold_kernels.LAUNCHES, **scan_reduce.LAUNCHES}
+    chunks = segment_info(seg_path)["num_chunks"]
+    passes = scan_reduce.PASSES
+    if got.chunks != chunks or any(launches[p] != chunks for p in passes) or \
+            sum(launches.values()) != len(passes) * chunks:
+        raise AssertionError(f"scan_segment {name}: {got.chunks} of {chunks} chunks, "
+                             f"launches {launches}")
+    t1 = time.perf_counter()
+    want = scan_reference(read_segment(seg_path, columns=q.columns_needed()), q,
+                          spec.registry)
+    oracle_s = time.perf_counter() - t1
+    if got.aggregate_ids != want.aggregate_ids or set(got.columns) != set(want.columns):
+        raise AssertionError(f"scan_segment {name}: ids or columns differ from "
+                             f"scan_reference")
+    for col_name, col in want.columns.items():
+        if got.columns[col_name].tobytes() != col.tobytes():
+            raise AssertionError(f"scan_segment {name}: {col_name} differs from "
+                                 f"scan_reference")
+    row = {"card": card, "query": name, "chunks": got.chunks,
+           "groups": got.num_aggregates,
+           "events": got.scanned_events, "matched": got.matched_events,
+           "wall_s": wall, "scan_events_per_sec": got.scanned_events / wall,
+           "stages_s": dict(seg_eng.stage_s), "launches": launches,
+           "oracle_chunks": list(range(got.chunks)), "oracle_s": oracle_s}
+    log("phase11-scan " + json.dumps(row))
+    return row
 
 
 class RecordingTracer:
@@ -3000,7 +3201,7 @@ class ViewArm:
         self.tracer = RecordingTracer()
         self.defs = view_defs()
         self.subs: dict = {}
-        self.folds: list = []  # (kind, seconds, scan launches)
+        self.folds: list = []  # (kind, seconds, {pass: launches})
         self.inflight = False  # a refresh round has not returned yet
 
     def hooks(self) -> dict:
@@ -3010,14 +3211,15 @@ class ViewArm:
         from surge_tpu_torch.replay import scan_reduce
 
         def run(*a, **k):
-            l0 = scan_reduce.LAUNCHES["scan_reduce"]
+            counts = scan_reduce.LAUNCHES
+            before = {p: counts[p] for p in scan_reduce.PASSES}
             t0 = time.perf_counter()
             try:
                 return fn(*a, **k)
             finally:
                 self.folds.append((kind if self.plane._running or kind != "round"
                                    else "seed", time.perf_counter() - t0,
-                                   scan_reduce.LAUNCHES["scan_reduce"] - l0))
+                                   {p: counts[p] - before[p] for p in scan_reduce.PASSES}))
         return run
 
     def attach(self, plane):
@@ -3108,10 +3310,13 @@ class ViewArm:
             raise AssertionError(f"tracer: {len(gathers)} resident.gather spans")
         kinds = {}
         for kind, sec, launches in self.folds:
-            acc = kinds.setdefault(kind, {"calls": 0, "s": 0.0, "launches": 0})
+            acc = kinds.setdefault(kind, {"calls": 0, "s": 0.0, "launches": 0,
+                                          "launches_by_pass": dict.fromkeys(launches, 0)})
             acc["calls"] += 1
             acc["s"] += sec
-            acc["launches"] += launches
+            acc["launches"] += launches["scan_reduce"]
+            for p, n in launches.items():
+                acc["launches_by_pass"][p] += n
         rounds_fold = [sec * 1e3 for kind, sec, _ in self.folds if kind == "round"]
         return {"views": out, "folds": kinds,
                 "fold_ms_per_round": rounds_fold,
@@ -3224,15 +3429,28 @@ def scan_reduce_line(query: dict, views: dict | None) -> dict:
     """The scan-reduce kernel's entry of the ``kernels`` line: its time at
     the head case (the first chunk's all-ops scan), every case's time, bound,
     plain and library time, and its launches on each path of this slice."""
+    from surge_tpu_torch.replay.scan_reduce import PASSES
+
     rows = query["kernel_rows"]
     head = rows[0]
     folds = views["views"]["folds"] if views else {}
     paths = {
         "query_scan_segment": query["scan"]["launches"]["scan_reduce"],
+        "query_scan_segment_group_by": query["scan_group_by"]["launches"]["scan_reduce"],
         "query_states_segment": query["states"]["launches"]["scan_reduce"],
         **{f"view_plane_{k}": (folds[k]["launches"] if k in folds else None)
            for k in ("seed", "round", "backfill")},
     }
+    # every pass of a call launches once: each pass's launches per path
+    passes = {p: {
+        "query_scan_segment": query["scan"]["launches"][p],
+        "query_scan_segment_group_by": query["scan_group_by"]["launches"][p],
+        "query_states_segment": query["states"]["launches"][p],
+        **{f"view_plane_{k}": (folds[k]["launches_by_pass"][p] if k in folds else None)
+           for k in ("seed", "round", "backfill")},
+    } for p in PASSES}
+    if any(by_path != paths for by_path in passes.values()):
+        raise AssertionError(f"scan_reduce: launches by pass {passes}")
     return {
         "name": "scan_reduce", "route": "cuda",
         "source": "surge_tpu_torch/csrc/scan_reduce.cu",
@@ -3240,6 +3458,7 @@ def scan_reduce_line(query: dict, views: dict | None) -> dict:
                      "XLA scatter (the port's own kernel, for a float sum in "
                      "event order)"),
         "launches": total_launches(paths), "launches_by_path": paths,
+        "launches_by_pass_by_path": passes,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -3249,6 +3468,9 @@ def scan_reduce_line(query: dict, views: dict | None) -> dict:
         "plain_ms_by_case": {r["case"]: r["plain_ms"] for r in rows},
         "library_ms_by_case": {r["case"]: r["library_ms"] for r in rows},
         "library_equal_by_case": {r["case"]: r["library_equal"] for r in rows},
+        "baseline_ms_by_case": {r["case"]: r.get("baseline_ms") for r in rows},
+        "serial_floor_ms_by_case": {r["case"]: r["serial_floor_ms"] for r in rows
+                                    if "serial_floor_ms" in r},
     }
 
 
@@ -3262,6 +3484,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases to run (default: all)")
+    ap.add_argument("--baseline", default=None,
+                    help="a tree of an earlier commit (unpacked git archive): "
+                         "phase 11 times its scan-reduce kernel beside this "
+                         "one's on every case")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -3285,12 +3511,12 @@ def main() -> int:
 
     work = tempfile.mkdtemp(prefix="chip-smoke-")
     try:
-        return run_phases(phases, card, work)
+        return run_phases(phases, card, work, args.baseline)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def run_phases(phases: set, card: str, work: str) -> int:
+def run_phases(phases: set, card: str, work: str, baseline: str | None = None) -> int:
     import torch
 
     from surge_tpu_torch.replay import fold_kernels
@@ -3338,7 +3564,8 @@ def run_phases(phases: set, card: str, work: str) -> int:
                     os.path.join(work, "bench.scol"))
         if seg_restore is None:
             write_bench_segment(corpus, seg_path)
-        query = phase_query(card, corpus, seg_path)
+        query = phase_query(card, corpus, seg_path,
+                            load_baseline(baseline, work) if baseline else None)
         lap("11-query")
     del corpus
     if 3 in phases:

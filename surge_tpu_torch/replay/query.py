@@ -44,7 +44,7 @@ import torch
 from surge_tpu_torch.codec.tensor import ColumnarEvents
 from surge_tpu_torch.config import Config, default_config
 from surge_tpu_torch.replay.engine import _resolve_device, _sync
-from surge_tpu_torch.replay.scan_reduce import group_csr, scan_reduce
+from surge_tpu_torch.replay.scan_reduce import daz, group_csr, scan_reduce
 
 __all__ = ["Predicate", "Aggregate", "ScanQuery", "StateQuery", "QueryResult",
            "QueryEngine", "scan_reference", "state_query_reference",
@@ -399,6 +399,9 @@ def device_dtype(dt: np.dtype) -> np.dtype:
 
 
 def _compare(col: torch.Tensor, op: str, v: torch.Tensor) -> torch.Tensor:
+    if col.dtype.is_floating_point:
+        # the reference compares on the CPU with denormals-are-zero
+        col, v = daz(col), daz(v)
     if op == "==":
         return col == v
     if op == "!=":

@@ -380,16 +380,12 @@ def test_plain_reduce_equals_scan_reference():
     assert s.numpy().tobytes() == want.tobytes()
     assert count.numpy().tolist() == np.bincount(groups[mask.numpy()],
                                                  minlength=9).tolist()
-    # the time blocks of the plain walk do not change its result
-    import surge_tpu_torch.replay.scan_reduce as sr
-    small = sr._BLOCK_ELEMS
-    try:
-        sr._BLOCK_ELEMS = 16
-        count2, (s2,) = scan_reduce_reference(mask, [col], ["sum"], offsets, order)
-    finally:
-        sr._BLOCK_ELEMS = small
-    assert s2.numpy().tobytes() == s.numpy().tobytes()
-    assert torch.equal(count2, count)
+    # the twin's tiles do not change its result
+    for tile in (1, 3, 16):
+        count2, (s2,) = scan_reduce_reference(mask, [col], ["sum"], offsets, order,
+                                              tile=tile)
+        assert s2.numpy().tobytes() == s.numpy().tobytes()
+        assert torch.equal(count2, count)
 
 
 # -- on the card ------------------------------------------------------------------------
@@ -402,13 +398,28 @@ def cuda_card():
     return torch.device("cuda")
 
 
+def card_groups(rng, case: str) -> tuple[np.ndarray, int]:
+    """The group of each event: many small groups in event order or not,
+    four large groups not in event order (a group_by), and one group of
+    200,000 events among 20,000 small ones in event order. (The plain
+    twin steps a float sum one position a call: these sizes keep it to
+    seconds.)"""
+    if case in ("grouped", "shuffled"):
+        groups = rng.integers(0, 700, size=50_000)
+        return (np.sort(groups) if case == "grouped" else groups).astype(np.int32), 700
+    if case == "few_large":
+        return rng.integers(0, 4, size=200_000).astype(np.int32), 4
+    small = np.sort(rng.integers(0, 20_000, size=400_000))
+    small[small >= 10_000] += 1
+    return np.sort(np.concatenate([small, np.full(200_000, 10_000)])).astype(np.int32), 20_001
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("grouped", [True, False])
-def test_scan_reduce_kernel_matches_plain_version_on_the_card(cuda_card, grouped):
+@pytest.mark.parametrize("case", ["grouped", "shuffled", "few_large", "skewed"])
+def test_scan_reduce_kernel_matches_plain_version_on_the_card(cuda_card, case):
     rng = np.random.default_rng(5)
-    n, g = 50_000, 700
-    groups = (np.sort(rng.integers(0, g, size=n)) if grouped
-              else rng.integers(0, g, size=n)).astype(np.int32)
+    groups, g = card_groups(rng, case)
+    n = groups.shape[0]
     fcol = rng.standard_normal(n).astype(np.float32)
     fcol[::97] = np.nan
     icol = rng.integers(-(1 << 30), 1 << 30, size=n).astype(np.int32)
@@ -423,3 +434,20 @@ def test_scan_reduce_kernel_matches_plain_version_on_the_card(cuda_card, grouped
     assert torch.equal(count, want_count)
     for k, (got_k, want_k) in enumerate(zip(outs, want)):
         assert got_k.cpu().numpy().tobytes() == want_k.cpu().numpy().tobytes(), k
+
+
+@pytest.mark.parametrize("op", ["==", "<", ">", "!="])
+def test_float_predicate_flushes_denormals_like_the_reference(op):
+    """The reference compares on the CPU under denormals-are-zero: a
+    denormal column value, or predicate value, compares as a zero of its
+    sign; the port's mask does the same."""
+    rng = np.random.default_rng(13)
+    j, _ = numpy_chunk(rng, 30, 20, bank_cols(rng, nan=False))
+    tiny = np.asarray([1, 0x80000001, 0x007FFFFF], np.uint32).view(np.float32)
+    j.cols["new_balance"][::3] = tiny[rng.integers(0, 3, size=j.cols["new_balance"][::3].shape)]
+    j.cols["new_balance"][1::5] = 0.0
+    for value in (0.0, 1e-40):
+        q = jq.ScanQuery(aggregates=(jq.Aggregate("count"),
+                                     jq.Aggregate("sum", "balance")),
+                         predicates=(jq.Predicate("new_balance", op, value),))
+        scan_both([j], q, jbank.make_replay_spec(), bank_account.make_replay_spec())
