@@ -38,8 +38,9 @@ first. Phases:
    ``ordinal_base``) and a bank_account corpus against the plain scan;
 4. the resident state plane (``ResidentStatePlane``) at deployment size: the
    port's ``InMemoryLog`` with 8 partitions, the reference's default config
-   with 2^20 resident rows, a cold-start seed of 1,310,720 aggregates through
-   K1's list fold, 16 refresh rounds of about 32k events through K2's window
+   with 2^20 resident rows, a cold-start seed of 1,310,720 aggregates (~1.57M
+   events) through K1's list fold, 4 refresh rounds of about 32k events
+   through K2's window
    (evicting and re-admitting, with chained windows every fourth round)
    while a reader checks that no row is torn, then every aggregate read back
    against its closed form; and a smaller plane on the dense dispatch
@@ -51,8 +52,8 @@ first. Phases:
 5. the families' cold replay: 1M carts and 1M sagas (seeded numpy walks of
    the reference's ``random_cart_log`` and ``random_saga_log``) on ``auto``
    (K1, dense), ``flat`` (K1) and ``xla`` (the plain scan), carts also on
-   ``assoc``; the counter 1M/100M corpus and 500k bank accounts on K1 and
-   ``assoc`` in turns; every arm's states byte-equal to the others' (and to
+   ``assoc``; the counter 1M/100M corpus and 500k bank accounts on K1, then
+   on ``assoc``; every arm's states byte-equal to the others' (and to
    the walks' final states), events/s per arm;
 6. the saga family through the resident state plane: 327,680 sagas, 2^18
    rows, a seed of the logs' prefixes through K1 and 4 refresh rounds of
@@ -86,6 +87,28 @@ first. Phases:
    call and, with ``--baseline``, an earlier tree's kernel; ``scan_segment``
    (all ops, and ``group_by type_id``) and ``query_states_segment`` over the
    16 chunks; the views on phase 4's plane, and the plane's fault hooks;
+12. the engine at the plane's full deployment: ``create_engine`` over the port's
+   InMemoryLog (8 partitions, 1,310,720 counter aggregates, ~3.1M events in
+   the counter's JSON, as the publisher writes them) with the resident plane
+   (2^20 rows), ``restore-on-start`` and a segment path, one view registered
+   before ``start()``. The cold start (segment build, the restore through
+   K1, the plane's seed through K1, the view's seed through scan_reduce),
+   every stored state decoded against the closed form; 10,000 Increment
+   commands over 5,000 aggregates (half resident, half spilled) in turns,
+   each reply against the closed form, every refresh window one window-kernel
+   launch, at least one entity init served by the plane's gather lane,
+   commands/s, reply latency p50 and p99 by kind, the refresh lag after the
+   burst and a profiled wave's device idle share; every burst target read
+   back through the plane against the closed form;
+   ``project_states`` over 65,536 aggregates through the gather lane; the
+   view against a from-scratch ``scan_chunks``; ``engine.query`` (the
+   segment extended with the commands' events) against ``scan_reference``;
+   ``engine.query_states`` against the closed form; then ``stop()`` and a
+   second engine on the same log, its store byte-equal to the first's and
+   its plane read back against the closed form. K1, a window kernel and
+   scan_reduce must each launch in the phase. Then each window kernel is
+   held against its plain version at every window shape the burst gave it
+   that no earlier check held;
 then one JSON line of every kernel's numbers, the card line, and a last line
 ``{"ok": true, "device": {...}}``.
 
@@ -488,15 +511,17 @@ def phase_windows() -> dict:
 def check_plane_window_shapes(shapes: dict, checked: set,
                               layout: str = "counter/derived") -> list[dict]:
     """Each window kernel against its plain version at every window shape
-    a plane gave it in phase 4 or 6 (``shapes``: {kind: [[lanes, width,
-    rows, launches], ...]}) that phase 1 did not hold, on that plane's
-    layout (the family, derived ordinal), timed."""
+    a plane gave it in phase 4, 6 or 12 (``shapes``: {kind: [[lanes, width,
+    rows, launches], ...]}) that no earlier check held (``checked``, which
+    gains each shape held here), on that plane's layout (the family,
+    derived ordinal), timed."""
     _, spec, wire = next(c for c in kernel_cases() if c[0] == layout)
     rows = []
     for kind, seen in shapes.items():
         for lanes, width, nrows, _ in seen:
             if (layout, kind, lanes, width, nrows) in checked:
                 continue
+            checked.add((layout, kind, lanes, width, nrows))
             if kind == "ragged":  # events that pack into exactly nrows rows
                 total = nrows * 3 // 4 if nrows > 8 else 6
                 live = min(lanes, total)
@@ -522,7 +547,9 @@ def check_plane_window_shapes(shapes: dict, checked: set,
 #: lanes (104 B rows: plain loads, tiles ending inside a lane block); a
 #: batch of 256 (small tiles of 32 lanes, eight staged into each lane
 #: block); a batch of 2,000 (big tiles starting and ending inside lane
-#: blocks, staged; small tiles of 250 lanes, plain loads); width 512
+#: blocks, staged; small tiles of 250 lanes, plain loads; on the "mid"
+#: corpora since the engine's phase joined: on the cut ones their plain
+#: versions took ~20 s); width 512
 LIST_CASES = [
     ("counter/derived", "counter/derived", "cut", {}, (True, True)),
     ("counter/side", "counter/side", "cut", {}, (True, True)),
@@ -538,9 +565,9 @@ LIST_CASES = [
      {"surge.replay.batch-size": 256}, (True, True)),
     ("bank_account batch 256", "bank_account", "small",
      {"surge.replay.batch-size": 256}, (True, True)),
-    ("counter/derived batch 2000", "counter/derived", "cut",
+    ("counter/derived batch 2000", "counter/derived", "mid",
      {"surge.replay.batch-size": 2000}, (True, False)),
-    ("bank_account batch 2000", "bank_account", "bank",
+    ("bank_account batch 2000", "bank_account", "mid",
      {"surge.replay.batch-size": 2000}, (True, False)),
     ("counter/derived width 512", "counter/derived", "cut",
      {"surge.replay.time-chunk": 512}, (True, True)),
@@ -551,7 +578,7 @@ LIST_CASES = [
     ("saga/derived bs_small 8", "saga/derived", "tiny", {}, (True, False)),
     ("saga/derived batch 104", "saga/derived", "small",
      {"surge.replay.batch-size": 104}, (False, False)),
-    ("saga/derived batch 2000", "saga/derived", "cut",
+    ("saga/derived batch 2000", "saga/derived", "mid",
      {"surge.replay.batch-size": 2000}, (True, False)),
     # the cold replays of phase 5 (1M carts, 1M sagas): the kernels line's
     # time per cold replay of each family
@@ -560,15 +587,17 @@ LIST_CASES = [
     ("saga/derived 1M", "saga/derived", "full", {}, (True, True)),
 ]
 #: aggregates of the families' corpora, by LIST_CASES corpus name
-FAMILY_SIZES = {"tiny": 64, "small": 3_000, "cut": 100_000, "full": 1_000_000}
+FAMILY_SIZES = {"tiny": 64, "small": 3_000, "mid": 12_000, "cut": 100_000,
+                "full": 1_000_000}
 
 
 def list_corpus(layout: str, corpus: str):
     """A cut corpus of the layout: the counter corpus's shape (lognormal
-    lengths, spread 0.6) at 100k aggregates / 5M events ("cut"), 3,000 / 150k
-    ("small") or 64 / 1,600 ("tiny"), with the ordinal derived or shipped as a
-    side column; bank_account logs for "bank" (500k accounts of 0-89
-    events, as phase 3, cut to 100k) and on the counter's lengths otherwise;
+    lengths, spread 0.6) at 100k aggregates / 5M events ("cut"), 12,000 /
+    600k ("mid"), 3,000 / 150k ("small") or 64 / 1,600 ("tiny"), with the
+    ordinal derived or shipped as a side column; bank_account logs for
+    "bank" (500k accounts of 0-89 events, as phase 3, cut to 100k) and on
+    the counter's lengths otherwise;
     the cart and saga walks of phase 5 at ``FAMILY_SIZES[corpus]``."""
     from surge_tpu_torch.codec.tensor import ColumnarEvents
     from surge_tpu_torch.models import bank_account as ba
@@ -579,8 +608,8 @@ def list_corpus(layout: str, corpus: str):
     family = layout.split("/")[0]
     if family in ("shopping_cart", "saga"):
         return family_corpus(family, FAMILY_SIZES[corpus], seed=7)[0]
-    aggs, events = {"cut": (100_000, 5_000_000), "small": (3_000, 150_000),
-                    "tiny": (64, 1_600)}[corpus]
+    aggs, events = {"cut": (100_000, 5_000_000), "mid": (12_000, 600_000),
+                    "small": (3_000, 150_000), "tiny": (64, 1_600)}[corpus]
     c = synth_counter_corpus(aggs, events, seed=1)
     ev = c.events
     if layout == "counter/derived":
@@ -1450,8 +1479,9 @@ def phase_families(card: str, counter_corpus) -> dict:
                                   "events": corpus.num_events, "walk_s": walk_s,
                                   "arms": rows}
         log(f"phase5 {model} " + json.dumps(out["families"][model]))
-    # the counter 1M/100M corpus on K1 and assoc in turns (K1, assoc, assoc,
-    # K1), on one uploaded corpus; bank_account likewise
+    # the counter 1M/100M corpus on K1, then on assoc, on one uploaded
+    # corpus; bank_account likewise (the turns K1, assoc, assoc, K1 were cut
+    # to two for the time limit)
     for model, spec, corpus, expected in (
             ("counter", counter.make_replay_spec(), counter_corpus.events,
              {"count": counter_corpus.expected_count.astype(np.int32),
@@ -1459,7 +1489,7 @@ def phase_families(card: str, counter_corpus) -> dict:
             ("bank_account", bank_account.make_replay_spec(),
              bank_corpus(500_000, seed=5), None)):
         rows, resident, first = [], None, None
-        for arm in ("auto", "assoc", "assoc", "auto"):
+        for arm in ("auto", "assoc"):
             r = run_arm(spec, corpus, arm, replays=2, resident=resident)
             resident = r["resident"]
             rows.append(r["row"])
@@ -1480,11 +1510,17 @@ def phase_families(card: str, counter_corpus) -> dict:
 PLANE_TOPIC = "counter-events"
 PLANE_PARTITIONS = 8
 #: the main plane's deployment: 2^20 resident rows, 1.25x as many aggregates
-#: (the seed spills the rest), 16 refresh rounds. A cut forced by the time
-#: limit lowers the seed's events, then the rounds, and is recorded in PERF.md
+#: (the seed spills the rest), PLANE_ROUNDS refresh rounds. A cut forced by
+#: the time limit lowers the seed's events, then the rounds, never the
+#: scale, and is recorded in PERF.md. With phase 12 (the engine over the
+#: same deployment) added, the seed's events per aggregate went from 1 +
+#: Binomial(7, 0.2) (~2.4) to 1 + Binomial(1, 0.2) (~1.2) and the rounds
+#: from 16 to 4 (the heavy round, the mid-run view registration and
+#: evictions stay)
 PLANE_CAPACITY = 1 << 20
 PLANE_AGGREGATES = 1_310_720
-PLANE_ROUNDS = 16
+PLANE_ROUNDS = 4
+PLANE_SEED_TRIALS = 1
 #: one counter event on the log: type id (u8), increment_by (u8),
 #: sequence_number (u32), little-endian — decoded by deserialize_event(s)
 EVENT_RECORD = np.dtype([("type", "u1"), ("inc", "u1"), ("seq", "<u4")])
@@ -1519,10 +1555,13 @@ class PlaneLog:
         self.n_events = np.zeros(num_aggregates, dtype=np.int64)
         self._producer = self.log.transactional_producer("chip-smoke")
 
-    def append(self, aggs: np.ndarray, rng) -> int:
+    def append(self, aggs: np.ndarray, rng, verbatim: bool = False) -> int:
         """Append one event per entry of ``aggs`` (aggregate indices, repeats
         allowed), in a shuffled order that keeps each aggregate's own order,
-        as one transaction; returns the event count."""
+        as one transaction; returns the event count. With ``verbatim`` (the
+        seed), the records a transaction would leave are appended with their
+        offsets, a partition at a time: the same log, built in two thirds of
+        the time."""
         from surge_tpu_torch.log import LogRecord
 
         aggs = aggs[rng.permutation(len(aggs))]
@@ -1540,6 +1579,18 @@ class PlaneLog:
         buf = recs.tobytes()
         w = EVENT_RECORD.itemsize
         ids = self.ids
+        if verbatim:
+            now = time.time()
+            parts = [[] for _ in range(PLANE_PARTITIONS)]
+            ends = [self.log.end_offset(PLANE_TOPIC, p) for p in range(PLANE_PARTITIONS)]
+            for j, a in enumerate(aggs.tolist()):
+                p = a % PLANE_PARTITIONS
+                recs = parts[p]
+                recs.append(LogRecord(PLANE_TOPIC, ids[a], buf[j * w:(j + 1) * w], p,
+                                      {}, ends[p] + len(recs), now))
+            for recs in parts:
+                self.log.append_verbatim(recs)
+            return len(aggs)
         prod = self._producer
         prod.begin()
         for j, a in enumerate(aggs.tolist()):
@@ -1732,8 +1783,9 @@ async def drive_plane(card: str, *, aggregates: int, capacity: int,
     t0 = time.perf_counter()
     if plog is None:
         plog = PlaneLog(aggregates)
-        lens = 1 + rng.binomial(7, 0.2, size=aggregates)  # 1-8 events, ~2.4 mean
-        plog.append(np.repeat(np.arange(aggregates, dtype=np.int64), lens), rng)
+        lens = 1 + rng.binomial(PLANE_SEED_TRIALS, 0.2, size=aggregates)
+        plog.append(np.repeat(np.arange(aggregates, dtype=np.int64), lens), rng,
+                    verbatim=True)
     seed_events = int(plog.n_events.sum())
     log_s = time.perf_counter() - t0
     signals: list = []
@@ -2926,9 +2978,11 @@ def check_scan_case(label: str, eng, colev, query, fadd_ns: float,
             for x, y in zip([bcount] + bouts, [count] + outs))
     row["pass_ms"] = pass_device_ms(kernel)
     row.update(
-        # a twin that steps a long float chain takes seconds: timed once
-        plain_ms=None if oracle else cuda_ms(lambda: sr.scan_reduce_reference(*args),
-                                             3 if plain_s < 2.0 else 1, 1),
+        # a twin that steps a long float chain takes seconds: its check
+        # call above, synchronised on the host clock, is its time
+        plain_ms=None if oracle else (
+            plain_s * 1e3 if plain_s >= 2.0 else
+            cuda_ms(lambda: sr.scan_reduce_reference(*args), 3, 1)),
         library_ms=device_ms(lib, 5, 3),
         library_equal=all(a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
                           for a, b in zip(lib_out, [count] + outs)),
@@ -3425,7 +3479,554 @@ def phase_faults(card: str) -> dict:
     return out
 
 
-def scan_reduce_line(query: dict, views: dict | None) -> dict:
+# -- phase 12: the engine at deployment size -----------------------------------------
+
+ENGINE_EVENTS_TOPIC = "counter-events"
+ENGINE_STATE_TOPIC = "counter-state"
+#: the plane's full deployment behind the engine: the reference's defaults
+#: (8 partitions), 2^20 resident rows, 1,310,720 aggregates (~3.1M events)
+ENGINE_PARTITIONS = 8
+ENGINE_AGGREGATES = 1_310_720
+ENGINE_CAPACITY = 1 << 20
+#: the burst: ENGINE_COMMANDS Increment commands over
+#: ENGINE_COMMAND_AGGREGATES aggregates (half resident after the seed, half
+#: spilled), in turns of one command an aggregate, sent in waves of
+#: ENGINE_WAVE concurrent commands
+ENGINE_COMMANDS = 10_000
+ENGINE_COMMAND_AGGREGATES = 5_000
+ENGINE_WAVE = 500
+ENGINE_PROJECT = 65_536
+#: query_states: aggregates with at least this many events
+ENGINE_STATE_K = 5
+#: the stages whose launches the kernels line reports
+ENGINE_STAGES = ("cold_start", "commands", "query", "query_states", "restart")
+#: the counter's JSON formats (``counter.event_formatting`` and
+#: ``counter.state_formatting``; checked against them before use)
+EVENT_JSON = ('{"aggregate_id": "%s", "increment_by": 1, "sequence_number": %d, '
+              '"_type": "CountIncremented"}')
+STATE_JSON = '{"aggregate_id": "%s", "count": %d, "version": %d}'
+
+
+def engine_logic():
+    from surge_tpu_torch import SurgeCommandBusinessLogic
+    from surge_tpu_torch.models import counter
+
+    return SurgeCommandBusinessLogic(
+        aggregate_name="counter", model=counter.CounterModel(),
+        state_format=counter.state_formatting(),
+        event_format=counter.event_formatting())
+
+
+def key_partitions(ids: list, num_partitions: int) -> np.ndarray:
+    """``partition_for_key`` of every id (ASCII ids), in numpy: Scala's
+    MurmurHash3.stringHash over the ids' chars two at a time, ids of one
+    length at a time: ten times as fast as the scalar function called per
+    id, which the log's build would call 1.3M times. The caller holds a
+    sample to the scalar function."""
+    m = np.uint64(0xFFFFFFFF)
+
+    def rotl(x, r):
+        return ((x << np.uint64(r)) | (x >> np.uint64(32 - r))) & m
+
+    def mix_k(k):
+        return (rotl((k * np.uint64(0xCC9E2D51)) & m, 15) * np.uint64(0x1B873593)) & m
+
+    lens = np.fromiter(map(len, ids), dtype=np.int64, count=len(ids))
+    out = np.empty(len(ids), dtype=np.int64)
+    for n in np.unique(lens).tolist():
+        at = np.flatnonzero(lens == n)
+        chars = np.frombuffer("".join(ids[i] for i in at.tolist()).encode("ascii"),
+                              dtype=np.uint8).reshape(len(at), n).astype(np.uint64)
+        h = np.full(len(at), 0xF7CA7FD2, dtype=np.uint64)
+        for i in range(0, n - 1, 2):
+            h = rotl(h ^ mix_k((chars[:, i] << np.uint64(16)) + chars[:, i + 1]), 13)
+            h = (h * np.uint64(5) + np.uint64(0xE6546B64)) & m
+        if n % 2:
+            h ^= mix_k(chars[:, n - 1])
+        h ^= np.uint64(n)
+        for shift, mul in ((16, 0x85EBCA6B), (13, 0xC2B2AE35)):
+            h = ((h ^ (h >> np.uint64(shift))) * np.uint64(mul)) & m
+        h ^= h >> np.uint64(16)
+        out[at] = np.abs(h.astype(np.uint32).view(np.int32).astype(np.int64)) % num_partitions
+    return out
+
+
+def engine_log(n: int, rng):
+    """The port's InMemoryLog holding what the engine's publisher writes:
+    every aggregate's events on the events topic and its latest state on the
+    state topic, keyed by aggregate id, partitioned by ``partition_for_key``
+    (the router's rule), in the counter's JSON formats. The records are
+    appended in bulk with their offsets (``append_verbatim``, one call a
+    topic and partition): the same records a transaction a command would
+    leave, built once instead of twice. Every event increments by 1 (1-8
+    events an aggregate, ~2.4 on average, as phase 4's seed before its
+    cut), so count == version == events."""
+    from surge_tpu_torch.engine.partition import partition_for_key
+    from surge_tpu_torch.log import InMemoryLog, LogRecord, TopicSpec
+    from surge_tpu_torch.models import counter
+
+    if (counter.event_formatting().write_event(
+            counter.CountIncremented("a7", 1, 3)).value
+            != (EVENT_JSON % ("a7", 3)).encode()
+            or counter.state_formatting().write_state(
+                counter.State("a7", 3, 3)).value
+            != (STATE_JSON % ("a7", 3, 3)).encode()):
+        raise AssertionError("the log's JSON differs from the counter's formats")
+    elog = InMemoryLog()
+    elog.create_topic(TopicSpec(ENGINE_STATE_TOPIC, ENGINE_PARTITIONS, compacted=True))
+    elog.create_topic(TopicSpec(ENGINE_EVENTS_TOPIC, ENGINE_PARTITIONS))
+    ids = [f"a{i}" for i in range(n)]
+    lens = 1 + rng.binomial(7, 0.2, size=n)
+    parts = key_partitions(ids, ENGINE_PARTITIONS)
+    if any(parts[i] != partition_for_key(ids[i], ENGINE_PARTITIONS)
+           for i in rng.choice(n, min(n, 4096), replace=False).tolist()):
+        raise AssertionError("key_partitions differs from partition_for_key")
+    now = time.time()
+    events = [[] for _ in range(ENGINE_PARTITIONS)]
+    states = [[] for _ in range(ENGINE_PARTITIONS)]
+    for a, k, p in zip(ids, lens.tolist(), parts.tolist()):
+        ev = events[p]
+        for s in range(1, k + 1):
+            ev.append(LogRecord(ENGINE_EVENTS_TOPIC, a, (EVENT_JSON % (a, s)).encode(),
+                                p, {}, len(ev), now))
+        st = states[p]
+        st.append(LogRecord(ENGINE_STATE_TOPIC, a, (STATE_JSON % (a, k, k)).encode(),
+                            p, {}, len(st), now))
+    for recs in events + states:
+        elog.append_verbatim(recs)
+    return elog, ids, lens.astype(np.int64)
+
+
+def engine_committed(elog, watermarks: dict, expect_events: np.ndarray):
+    """Every event the log holds below ``watermarks`` as one columnar chunk:
+    each record's bytes held to the counter's JSON for its key and position
+    (so the chunk is the log's content), grouped by aggregate."""
+    from surge_tpu_torch.codec.tensor import ColumnarEvents
+
+    keys: list = []
+    seqs: list = []
+    seen: dict = {}
+    for p, wm in watermarks.items():
+        for r in elog.read(ENGINE_EVENTS_TOPIC, int(p), 0):
+            if r.offset >= wm:
+                break
+            s = seen.get(r.key, 0) + 1
+            seen[r.key] = s
+            if r.value != (EVENT_JSON % (r.key, s)).encode():
+                raise AssertionError(f"event {r.key}@{r.offset} is not its JSON")
+            keys.append(int(r.key[1:]))
+            seqs.append(s)
+    agg = np.asarray(keys, dtype=np.int64)
+    if not np.array_equal(np.bincount(agg, minlength=len(expect_events)),
+                          expect_events):
+        raise AssertionError("the log's event counts differ from the closed form")
+    order = np.argsort(agg, kind="stable")
+    uniq, inv = np.unique(agg[order], return_inverse=True)
+    n = len(agg)
+    return ColumnarEvents(
+        num_aggregates=len(uniq), agg_idx=inv.astype(np.int32),
+        type_ids=np.zeros(n, dtype=np.int32),
+        cols={"increment_by": np.ones(n, dtype=np.int32),
+              "decrement_by": np.zeros(n, dtype=np.int32),
+              "sequence_number": np.asarray(seqs, dtype=np.int32)[order]},
+        aggregate_ids=[f"a{i}" for i in uniq.tolist()])
+
+
+def check_closed_form(label: str, states: dict, ids, expect: np.ndarray) -> None:
+    """Every id's state (domain objects) equals count == version == its
+    events."""
+    missing = [a for a in ids if a not in states]
+    if missing:
+        raise AssertionError(f"{label}: {len(missing)} states missing, e.g. {missing[:3]}")
+    for a in ids:
+        st, want = states[a], int(expect[int(a[1:])])
+        if st.count != want or st.version != want or st.aggregate_id != a:
+            raise AssertionError(f"{label}: {a} is {st}, not {want}")
+
+
+def launches_now() -> dict:
+    from surge_tpu_torch.replay import fold_kernels, scan_reduce
+
+    return {**fold_kernels.LAUNCHES, **scan_reduce.LAUNCHES}
+
+
+def device_busy(prof, wall_s: float) -> dict:
+    """A profiled slice's device busy time and idle share, and its device
+    operations by name."""
+    from torch.autograd import DeviceType
+
+    busy_us = 0.0
+    by_name: dict = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            us = evt.time_range.elapsed_us()
+            busy_us += us
+            acc = by_name.setdefault(evt.name[:60], [0, 0.0])
+            acc[0] += 1
+            acc[1] += us / 1e3
+    wall_us = wall_s * 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / wall_us if wall_us else None,
+            "device_ops": {k: {"count": v[0], "ms": v[1]} for k, v in top}}
+
+
+async def drive_engine(card: str, work: str) -> dict:
+    """Phase 12: the port's ``create_engine`` over the port's InMemoryLog at
+    the plane's full deployment; cold start, a command burst, reads, a view, a query,
+    a state query, and a second engine's cold start on the same log. Every
+    result is held to its oracle; every stage's kernel launches are counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from surge_tpu_torch import CommandSuccess, create_engine, default_config
+    from surge_tpu_torch.log.columnar import read_segment, segment_info
+    from surge_tpu_torch.models import counter
+    from surge_tpu_torch.replay import fold_kernels, scan_reduce
+    from surge_tpu_torch.replay.query import Aggregate as A
+    from surge_tpu_torch.replay.query import (Predicate, QueryEngine, ScanQuery,
+                                              StateQuery, scan_reference)
+    from surge_tpu_torch.replay.views import ViewDef
+
+    rng = np.random.default_rng(12)
+    t0 = time.perf_counter()
+    elog, ids, expect = engine_log(ENGINE_AGGREGATES, rng)
+    log_build_s = time.perf_counter() - t0
+    seg_path = os.path.join(work, "engine.scol")
+    cfg = default_config().with_overrides({
+        "surge.engine.num-partitions": ENGINE_PARTITIONS,
+        "surge.replay.resident.enabled": True,
+        "surge.replay.resident.capacity": ENGINE_CAPACITY,
+        "surge.replay.restore-on-start": True,
+        "surge.replay.segment-path": seg_path,
+    })
+    view = ViewDef(name="per-aggregate", query=ScanQuery(
+        aggregates=(A("count"), A("sum", "increment_by")),
+        event_types=("CountIncremented",)))
+    eng = create_engine(engine_logic(), log=elog, config=cfg)
+    if eng._engine_device().type != "cuda":
+        raise AssertionError(f"the engine resolved {eng._engine_device()}")
+    latest = [elog.latest_by_key(ENGINE_STATE_TOPIC, p)
+              for p in range(ENGINE_PARTITIONS)]
+    if any(a not in latest[eng.router.partition_for(a)] for a in ids[:1024]):
+        raise AssertionError("the log is not partitioned as the router routes")
+    del latest
+    eng.register_view(view)
+    plane = eng.resident_plane
+    if plane.engine.tile_backend != "pallas":
+        raise AssertionError("the plane's backend did not resolve to the kernels")
+    # the restore's result carries its stages, and the engine keeps no copy
+    # of it: the one wrapper here returns it unchanged (measurement only)
+    rebuild = eng.rebuild_from_events
+    captured: dict = {}
+
+    async def captured_rebuild():
+        c = time.perf_counter()
+        captured["restore"] = await rebuild()
+        captured["rebuild_s"] = time.perf_counter() - c
+        return captured["restore"]
+
+    eng.rebuild_from_events = captured_rebuild
+    ledger = eng.replay_ledger
+
+    async def settle(events: int, deadline_s: float = 600.0) -> float:
+        """Until the plane has folded every committed record and the ledger
+        holds ``events`` folded events in all: a round records itself once
+        it has closed, its views' leg included."""
+        c = time.perf_counter()
+        while plane.lag_records() > 0 or ledger.totals["events"] < events:
+            if time.perf_counter() - c > deadline_s:
+                raise AssertionError(f"refresh never caught up (lag "
+                                     f"{plane.lag_records()}, ledger events "
+                                     f"{ledger.totals['events']} of {events})")
+            await asyncio.sleep(0.002)
+        return time.perf_counter() - c
+
+    stages: dict = {}
+    # 1. cold start: segment build, restore through K1, plane seed through
+    # K1, the view's seed through scan_reduce
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    c0 = time.perf_counter()
+    await eng.start()
+    start_s = time.perf_counter() - c0
+    await settle(0)
+    stages["cold_start"] = launches_now()
+    res = captured["restore"]
+    restore_s = sum(res.stages.values())
+    if (res.num_aggregates, res.num_events) != (ENGINE_AGGREGATES, int(expect.sum())):
+        raise AssertionError(f"restore folded {res.num_aggregates} aggregates, "
+                             f"{res.num_events} events")
+    c = time.perf_counter()
+    store = eng.indexer.store
+    if store.approximate_num_entries() != ENGINE_AGGREGATES:
+        raise AssertionError(f"the store holds {store.approximate_num_entries()}")
+    # every stored state's bytes are the closed form's JSON (the format is
+    # deterministic, so this is the decoded check made exact); a sample is
+    # decoded through the engine's format too
+    if sorted(store.all_items()) != sorted(
+            (a, (STATE_JSON % (a, k, k)).encode())
+            for a, k in zip(ids, expect.tolist())):
+        raise AssertionError("the restored store differs from the closed form")
+    read_state = eng.logic.state_format.read_state
+    sample = [ids[i] for i in rng.permutation(len(ids))[:ENGINE_PROJECT]]
+    check_closed_form("cold start store (decoded)",
+                      {a: read_state(store.get(a)) for a in sample}, sample, expect)
+    store_check_s = time.perf_counter() - c
+    cold = {"card": card, "aggregates": ENGINE_AGGREGATES,
+            "events": int(expect.sum()), "log_build_s": log_build_s,
+            "start_s": start_s, "rebuild_s": captured["rebuild_s"],
+            # the rebuild's time outside the restore's stages: the segment
+            # build (the state window and the indexer prime take ~0 here)
+            "segment_build_s": captured["rebuild_s"] - restore_s,
+            "restore_s": restore_s, "restore_stages_s": res.stages,
+            "plane_seed": plane.seed_timing,
+            "plane_seed_s": sum(v for k, v in plane.seed_timing.items()
+                                if k.endswith("_s")),
+            "resident": len(plane._dir), "spilled": len(plane._spill),
+            "segment_chunks": segment_info(seg_path)["num_chunks"],
+            "store_check_s": store_check_s, "launches": stages["cold_start"],
+            "device_mem_peak_bytes": torch.cuda.max_memory_allocated()}
+    log("phase12-cold " + json.dumps(cold))
+
+    # 2. commands: half resident, half spilled, in turns
+    half = ENGINE_COMMAND_AGGREGATES // 2
+    in_dir = [a for a in (ids[i] for i in rng.permutation(len(ids))[:4 * half])
+              if a in plane._dir][:half]
+    spilled = list(plane._spill)
+    sp = [spilled[i] for i in rng.permutation(len(spilled))[:half]]
+    if len(in_dir) != half or len(sp) != half:
+        raise AssertionError("not enough resident or spilled aggregates")
+    kind = {**dict.fromkeys(in_dir, "resident"), **dict.fromkeys(sp, "spilled")}
+    targets = in_dir + sp
+    turns = ENGINE_COMMANDS // ENGINE_COMMAND_AGGREGATES
+    lat: dict = {"resident": [], "spilled": []}
+    windows0 = ledger.totals["windows"]
+    events0 = ledger.totals["events"]
+    rounds0 = plane.stats["rounds"]
+    stats0 = dict(plane.stats)
+    # the shape of every window the burst gives a window kernel, so each is
+    # held against the plain version after the phase
+    window_shapes: dict = {"dense": [], "ragged": []}
+    real = {wk: getattr(fold_kernels, f"{wk}_window") for wk in window_shapes}
+
+    def seen(wk):
+        def call(slab, ords, table, words, sides, **kw):
+            rows = words.shape[0] if wk == "ragged" else 0
+            width = kw["width"] if wk == "ragged" else words.shape[0]
+            window_shapes[wk].append((table.shape[1], width, rows))
+            return real[wk](slab, ords, table, words, sides, **kw)
+        return call
+
+    async def one(a):
+        c = time.perf_counter()
+        r = await eng.aggregate_for(a).send_command(counter.Increment(a))
+        return a, r, time.perf_counter() - c
+
+    reset_launches()
+    prof_out = None
+    lag_s = None
+    for wk in window_shapes:
+        setattr(fold_kernels, f"{wk}_window", seen(wk))
+    try:
+        c0 = time.perf_counter()
+        waves = [(t, lo) for t in range(turns)
+                 for lo in range(0, len(targets), ENGINE_WAVE)]
+        for w, (turn, lo) in enumerate(waves):
+            wave = targets[lo:lo + ENGINE_WAVE] if turn % 2 == 0 else \
+                targets[::-1][lo:lo + ENGINE_WAVE]
+            if w == len(waves) - 1:  # the last wave and its refresh, profiled
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    p0 = time.perf_counter()
+                    results = await asyncio.gather(*(one(a) for a in wave))
+                    burst_s = time.perf_counter() - c0
+                    # each Increment is one event
+                    lag_s = await settle(events0 + ENGINE_COMMANDS)
+                    torch.cuda.synchronize()
+                    p_wall = time.perf_counter() - p0
+                prof_out = device_busy(prof, p_wall)
+            else:
+                results = await asyncio.gather(*(one(a) for a in wave))
+            for a, r, dt in results:
+                i = int(a[1:])
+                expect[i] += 1
+                if (not isinstance(r, CommandSuccess) or r.state.count != expect[i]
+                        or r.state.version != expect[i]):
+                    raise AssertionError(f"command on {a}: {r}, want {expect[i]}")
+                lat[kind[a]].append(dt)
+    finally:
+        for wk, fn in real.items():
+            setattr(fold_kernels, f"{wk}_window", fn)
+    stages["commands"] = launches_now()
+    windows = ledger.totals["windows"] - windows0
+    win_launches = stages["commands"]["dense_window"] + stages["commands"]["ragged_window"]
+    if (windows <= 0 or win_launches != windows or stages["commands"]["tile_fold_list"]
+            or sum(map(len, window_shapes.values())) != windows):
+        raise AssertionError(f"{windows} refresh windows made {stages['commands']} "
+                             f"({sum(map(len, window_shapes.values()))} window calls)")
+    # an entity's first state comes from the plane: the burst's inits that
+    # the gather lane served (the others fell back to the host store)
+    inits_gathered = plane.stats["gathered_rows"] - stats0["gathered_rows"]
+    if inits_gathered <= 0:
+        raise AssertionError("the gather lane served no entity init: "
+                             f"{dict(plane.fallback_causes)}")
+    # every burst target read back through the plane: the rows K2 folded
+    c = time.perf_counter()
+    burst_resident = sum(a in plane._dir for a in targets)
+    check_closed_form("burst targets through the plane",
+                      await plane.read_many(targets), targets, expect)
+    burst_read_s = time.perf_counter() - c
+
+    def pct(xs, q):
+        return float(np.percentile(np.asarray(xs) * 1e3, q))
+
+    commands = {"card": card, "commands": ENGINE_COMMANDS,
+                "aggregates": len(targets), "wave": ENGINE_WAVE, "turns": turns,
+                "burst_s": burst_s, "commands_per_s": ENGINE_COMMANDS / burst_s,
+                "reply_ms": {k: {"p50": pct(v, 50), "p99": pct(v, 99),
+                                 "n": len(v)} for k, v in lat.items()},
+                "refresh_lag_after_burst_s": lag_s,
+                "rounds": plane.stats["rounds"] - rounds0, "windows": windows,
+                "evictions": plane.stats["evictions"] - stats0["evictions"],
+                "fallbacks": plane.stats["fallbacks"] - stats0["fallbacks"],
+                "fallback_causes": dict(plane.fallback_causes),
+                "inits_gathered": inits_gathered,
+                "burst_read_back": {"aggregates": len(targets),
+                                    "resident": burst_resident, "s": burst_read_s},
+                "window_shapes": {k: [[*shape, v.count(shape)]
+                                      for shape in sorted(set(v))]
+                                  for k, v in window_shapes.items()},
+                "launches": stages["commands"], "profiled_wave": prof_out,
+                "producer": eng.producer_stats()}
+    log("phase12-commands " + json.dumps(commands))
+
+    # 3. reads: project_states over resident and spilled aggregates
+    sample = [ids[i] for i in rng.permutation(len(ids))[:ENGINE_PROJECT]]
+    resident_n = sum(a in plane._dir for a in sample)
+    g0, r0 = plane.stats["gathers"], plane.stats["gathered_rows"]
+    reset_launches()
+    c = time.perf_counter()
+    proj = await eng.project_states(sample)
+    project_s = time.perf_counter() - c
+    check_closed_form("project_states", proj, sample, expect)
+    if (plane.stats["gathers"] <= g0
+            or plane.stats["gathered_rows"] - r0 < resident_n):
+        raise AssertionError(f"{resident_n} resident reads gathered "
+                             f"{plane.stats['gathered_rows'] - r0} rows")
+    reads = {"card": card, "aggregates": len(sample), "resident": resident_n,
+             "project_s": project_s, "rows_per_s": len(sample) / project_s,
+             "gathers": plane.stats["gathers"] - g0,
+             "gathered_rows": plane.stats["gathered_rows"] - r0,
+             "launches": launches_now()}
+    log("phase12-reads " + json.dumps(reads))
+
+    # 4. the view, a query and a state query
+    c = time.perf_counter()
+    snap = await eng.query_view(view.name)
+    view_s = time.perf_counter() - c
+    if "error" in snap or {int(p): w for p, w in snap["watermarks"].items()} \
+            != plane._watermarks:
+        raise AssertionError(f"the view is not at the plane's watermarks: "
+                             f"{snap.get('error')}")
+    colev = engine_committed(elog, snap["watermarks"], expect)
+    want = QueryEngine(plane.spec, device=plane.device).scan_chunks([colev], view.query)
+    order = sorted(range(want.num_aggregates), key=lambda j: want.aggregate_ids[j])
+    if snap["keys"] != [want.aggregate_ids[j] for j in order]:
+        raise AssertionError("the view's keys differ from a from-scratch scan")
+    for col, arr in want.columns.items():
+        if snap["columns"][col].tobytes() != np.asarray(arr)[order].tobytes():
+            raise AssertionError(f"the view's {col} differs from a from-scratch scan")
+    all_ops = ScanQuery(aggregates=(A("count"), A("sum", "increment_by"),
+                                    A("min", "increment_by"),
+                                    A("max", "sequence_number")))
+    reset_launches()
+    c = time.perf_counter()
+    got = await eng.query(all_ops)
+    query_s = time.perf_counter() - c
+    stages["query"] = launches_now()
+    info = segment_info(seg_path)
+    if any(stages["query"][p] != info["num_chunks"] for p in scan_reduce.PASSES):
+        raise AssertionError(f"query over {info['num_chunks']} chunks launched "
+                             f"{stages['query']}")
+    oracle = scan_reference(read_segment(seg_path, columns=all_ops.columns_needed()),
+                            all_ops, plane.spec.registry)
+    if got.aggregate_ids != oracle.aggregate_ids or any(
+            got.columns[k].tobytes() != v.tobytes() for k, v in oracle.columns.items()):
+        raise AssertionError("engine.query differs from scan_reference")
+    if got.scanned_events != int(expect.sum()):
+        raise AssertionError(f"the extended segment holds {got.scanned_events} events")
+    sq = StateQuery(select=("count", "version"),
+                    predicates=(Predicate("count", ">=", ENGINE_STATE_K),))
+    reset_launches()
+    c = time.perf_counter()
+    states = await eng.query_states(sq)
+    states_s = time.perf_counter() - c
+    stages["query_states"] = launches_now()
+    hit = np.flatnonzero(expect >= ENGINE_STATE_K)
+    by_id = dict(zip(states.aggregate_ids, np.asarray(states.columns["count"]).tolist()))
+    if sorted(by_id) != sorted(f"a{i}" for i in hit.tolist()) or any(
+            by_id[f"a{i}"] != int(expect[i]) for i in hit.tolist()):
+        raise AssertionError("query_states differs from the closed form")
+    if stages["query_states"]["tile_fold_list"] <= 0:
+        raise AssertionError("query_states launched K1 no time")
+    analytics = {"card": card, "view_snapshot_s": view_s,
+                 "view_groups": len(snap["keys"]), "view_version": snap["version"],
+                 "query_s": query_s, "query_chunks": info["num_chunks"],
+                 "query_events": got.scanned_events,
+                 "query_events_per_s": got.scanned_events / query_s,
+                 "query_states_s": states_s, "query_states_matched": len(hit),
+                 "launches": {k: stages[k] for k in ("query", "query_states")}}
+    log("phase12-analytics " + json.dumps(analytics))
+
+    # 5. restart: a second engine on the same log
+    c = time.perf_counter()
+    while eng.indexer.lag_for(range(ENGINE_PARTITIONS)):
+        if time.perf_counter() - c > 120:
+            raise AssertionError("the indexer never caught up")
+        await asyncio.sleep(0.01)
+    first_store = sorted(eng.indexer.store.all_items())
+    await eng.stop()
+    eng2 = create_engine(engine_logic(), log=elog, config=cfg)
+    plane2 = eng2.resident_plane
+    reset_launches()
+    c = time.perf_counter()
+    await eng2.start()
+    restart_s = time.perf_counter() - c
+    stages["restart"] = launches_now()
+    if sorted(eng2.indexer.store.all_items()) != first_store:
+        raise AssertionError("the second engine's store differs from the first's")
+    c = time.perf_counter()
+    back: dict = {}
+    for lo in range(0, len(ids), 65_536):
+        back.update(await plane2.read_many(ids[lo:lo + 65_536]))
+    check_closed_form("second plane", back, ids, expect)
+    plane2_read_s = time.perf_counter() - c
+    await eng2.stop()
+    for stage in ("cold_start", "restart"):
+        if stages[stage]["tile_fold_list"] <= 0:
+            raise AssertionError(f"{stage} launched K1 no time")
+    total = {k: sum(s.get(k, 0) for s in stages.values()) for k in stages["cold_start"]}
+    if (total["tile_fold_list"] <= 0 or total["dense_window"] + total["ragged_window"] <= 0
+            or total["scan_reduce"] <= 0):
+        raise AssertionError(f"the phase's launches {total}")
+    restart = {"card": card, "restart_s": restart_s,
+               "plane_seed": plane2.seed_timing, "read_back_s": plane2_read_s,
+               "launches": stages["restart"]}
+    log("phase12-restart " + json.dumps(restart))
+    return {"cold": cold, "commands": commands, "reads": reads,
+            "analytics": analytics, "restart": restart, "launches": stages,
+            "total_launches": total, "window_shapes": commands["window_shapes"],
+            # the plane's wire: the counter's ordinal shipped or derived
+            "window_layout": "counter/derived" if plane.derived else "counter/side"}
+
+
+def phase_engine(card: str, work: str) -> dict:
+    return asyncio.run(drive_engine(card, work))
+
+
+def scan_reduce_line(query: dict, views: dict | None, engine: dict | None) -> dict:
     """The scan-reduce kernel's entry of the ``kernels`` line: its time at
     the head case (the first chunk's all-ops scan), every case's time, bound,
     plain and library time, and its launches on each path of this slice."""
@@ -3440,6 +4041,8 @@ def scan_reduce_line(query: dict, views: dict | None) -> dict:
         "query_states_segment": query["states"]["launches"]["scan_reduce"],
         **{f"view_plane_{k}": (folds[k]["launches"] if k in folds else None)
            for k in ("seed", "round", "backfill")},
+        **{f"engine_{s}": (engine["launches"][s]["scan_reduce"] if engine else None)
+           for s in ENGINE_STAGES},
     }
     # every pass of a call launches once: each pass's launches per path
     passes = {p: {
@@ -3448,6 +4051,8 @@ def scan_reduce_line(query: dict, views: dict | None) -> dict:
         "query_states_segment": query["states"]["launches"][p],
         **{f"view_plane_{k}": (folds[k]["launches_by_pass"][p] if k in folds else None)
            for k in ("seed", "round", "backfill")},
+        **{f"engine_{s}": (engine["launches"][s][p] if engine else None)
+           for s in ENGINE_STAGES},
     } for p in PASSES}
     if any(by_path != paths for by_path in passes.values()):
         raise AssertionError(f"scan_reduce: launches by pass {passes}")
@@ -3482,7 +4087,7 @@ def total_launches(paths: dict) -> int | None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--baseline", default=None,
                     help="a tree of an earlier commit (unpacked git archive): "
@@ -3537,9 +4142,11 @@ def run_phases(phases: set, card: str, work: str, baseline: str | None = None) -
     windows = klist = nonres = None
     if 1 in phases:
         windows = phase_windows()
+        lap("1-windows")
         klist = phase_list_kernel(corpus.events)
+        lap("1-list")
         nonres = phase_nonres_windows()
-        lap("1")
+        lap("1-nonres")
     main_rows = []
     if 2 in phases:
         main_rows.append(drive_main_path(corpus, "auto", card))
@@ -3594,8 +4201,6 @@ def run_phases(phases: set, card: str, work: str, baseline: str | None = None) -
         saga_plane = phase_saga_plane(card)
         plane_rows += check_plane_window_shapes(
             {"ragged": saga_plane["window_shapes"]}, checked, "saga/derived")
-    if windows is not None:
-        windows["rows"].extend(plane_rows)
     if phases & {4, 6}:
         lap("4,6")
     views = faults = None
@@ -3605,6 +4210,17 @@ def run_phases(phases: set, card: str, work: str, baseline: str | None = None) -
         views = phase_views(card, plane.pop("plog"), plane["main"])
         faults = phase_faults(card)
         lap("11-views,faults")
+    if plane is not None:
+        plane.pop("plog", None)
+    engine = None
+    if 12 in phases:
+        engine = phase_engine(card, work)
+        lap("12")
+        plane_rows += check_plane_window_shapes(engine["window_shapes"], checked,
+                                                engine["window_layout"])
+        lap("12-windows")
+    if windows is not None:
+        windows["rows"].extend(plane_rows)
     log("phase_s " + json.dumps(phase_s))
 
     if windows is not None:
@@ -3651,6 +4267,9 @@ def run_phases(phases: set, card: str, work: str, baseline: str | None = None) -
                                      if query else None),
             "view_plane_seed": launches(views, "seed_launches", name),
             "view_plane_refresh": launches(views, "refresh_launches", name),
+            # this slice's path: the engine (phase 12), stage by stage
+            **{f"engine_{s}": (engine["launches"][s][name] if engine else None)
+               for s in ENGINE_STAGES},
         } for name in fold_kernels.LAUNCHES}
         kernels = []
         for kind, replaces in (("dense", "surge_tpu/replay/pallas_fold.py:86"),
@@ -3725,7 +4344,7 @@ def run_phases(phases: set, card: str, work: str, baseline: str | None = None) -
                                          for r in nonres["rows"] if "ms" in r},
         })
         if query is not None:
-            kernels.append(scan_reduce_line(query, views))
+            kernels.append(scan_reduce_line(query, views, engine))
         log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,0 +1,114 @@
+"""The user's business-logic bundle — what an application hands the engine.
+
+Mirrors the reference's plugin surface (modules/command-engine/core/src/main/scala/surge/
+core/commondsl/SurgeGenericBusinessLogicTrait.scala:16-64 +
+SurgeCommandBusinessLogicTrait.scala:9-24): aggregate name, topics, formats, the
+processing model, and engine-tuning hooks — plus (new) the model's TPU
+:class:`~surge_tpu_torch.engine.model.ReplaySpec` so the bulk-restore path can batch the fold.
+
+Also the ``SurgeModel`` role (internal/SurgeModel.scala:20-66): async serialization of
+events/state on a dedicated thread pool (``surge.serialization.thread-pool-size``).
+"""
+
+from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+from typing import Any, List, Optional, Sequence, Tuple
+
+from surge_tpu_torch.config import Config, default_config
+from surge_tpu_torch.engine.model import ReplaySpec
+from surge_tpu_torch.log.transport import LogRecord
+
+
+@dataclass
+class SurgeCommandBusinessLogic:
+    """Everything the engine needs to run one aggregate family."""
+
+    aggregate_name: str
+    model: Any  # AggregateCommandModel (sync) — process_command / handle_event
+    state_format: Any  # AggregateRead+WriteFormatting
+    event_format: Any  # EventRead+WriteFormatting
+    # command ⇄ bytes codec; only required for cross-node delivery over the gRPC
+    # node transport (the reference serializes envelopes with Jackson-CBOR for
+    # akka-remoting the same way — optional because single-node engines never
+    # serialize commands)
+    command_format: Any = None
+    state_topic: str = ""
+    events_topic: str = ""
+    publish_state_only: bool = False  # event-engine mode (no events topic)
+    consumer_group_base: str = ""
+    transactional_id_prefix: str = "surge"
+
+    def __post_init__(self) -> None:
+        if not self.state_topic:
+            self.state_topic = f"{self.aggregate_name}-state"
+        if not self.events_topic and not self.publish_state_only:
+            self.events_topic = f"{self.aggregate_name}-events"
+        if not self.consumer_group_base:
+            self.consumer_group_base = f"{self.aggregate_name}-cg"
+
+    def replay_spec(self) -> Optional[ReplaySpec]:
+        """The model's TPU replay contract, if it opts in (ReplayableModel)."""
+        fn = getattr(self.model, "replay_spec", None)
+        return fn() if fn is not None else None
+
+
+class SurgeModel:
+    """Serialization executor around a business-logic bundle (SurgeModel.scala:20-66).
+
+    ``serialize_outputs`` turns (aggregate_id, state, events) into the log records the
+    publisher commits in one transaction: events first, the state snapshot last —
+    off-thread on the shared pool so big JSON/proto payloads don't stall the event loop.
+    """
+
+    def __init__(self, logic: SurgeCommandBusinessLogic, config: Config | None = None,
+                 pool: Optional[ThreadPoolExecutor] = None) -> None:
+        self.logic = logic
+        cfg = config or default_config()
+        self._own_pool = pool is None
+        # command-path fast path: short event batches serialize INLINE —
+        # the executor hop (submit + wakeup) costs more than serializing a
+        # small payload, and at engine throughput it is a per-command tax.
+        # 0 keeps every batch off-thread (the reference's behavior).
+        self._inline_max_events = cfg.get_int(
+            "surge.serialization.inline-max-events", 4)
+        self.pool = pool or ThreadPoolExecutor(
+            max_workers=cfg.get_int("surge.serialization.thread-pool-size", 32),
+            thread_name_prefix="surge-serde")
+
+    async def serialize_outputs(self, aggregate_id: str, partition: int,
+                                state: Any, events: Sequence[Any],
+                                publish_state: bool = True) -> List[LogRecord]:
+        import asyncio
+
+        if len(events) <= self._inline_max_events > 0:
+            return self._serialize_sync(aggregate_id, partition, state,
+                                        list(events), publish_state)
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(
+            self.pool, self._serialize_sync, aggregate_id, partition, state,
+            list(events), publish_state)
+
+    def _serialize_sync(self, aggregate_id: str, partition: int, state: Any,
+                        events: List[Any], publish_state: bool) -> List[LogRecord]:
+        records: List[LogRecord] = []
+        if not self.logic.publish_state_only:
+            for ev in events:
+                msg = self.logic.event_format.write_event(ev)
+                records.append(LogRecord(topic=self.logic.events_topic, key=msg.key,
+                                         value=msg.value, partition=partition,
+                                         headers=dict(msg.headers)))
+        if publish_state:
+            agg = self.logic.state_format.write_state(state)
+            records.append(LogRecord(topic=self.logic.state_topic, key=aggregate_id,
+                                     value=agg.value, partition=partition,
+                                     headers=dict(agg.headers)))
+        return records
+
+    def deserialize_state(self, data: bytes) -> Any:
+        return self.logic.state_format.read_state(data)
+
+    def close(self) -> None:
+        if self._own_pool:
+            self.pool.shutdown(wait=False, cancel_futures=True)

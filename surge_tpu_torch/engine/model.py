@@ -1,5 +1,8 @@
-"""The replay contract of a model family — the counterpart of ``ReplayHandlers``,
-``ReplaySpec`` and ``fold_events`` in ``surge_tpu/engine/model.py``.
+"""The processing-model API and the replay contract of a model family — the
+port's copy of ``surge_tpu/engine/model.py``: the command half
+(``RejectedCommand``, ``AggregateCommandModel``, ``AsyncAggregateCommandModel``,
+``AggregateEventModel``) as the reference has it, and the counterparts of
+``ReplayHandlers``, ``ReplaySpec`` and ``fold_events``.
 
 Handlers are torch functions over lane batches: ``handler(state {field: [B]},
 fields {column: [B]}) -> {field: value}``. A handler may return a partial dict
@@ -10,14 +13,62 @@ the batch); the step function pins every result to the schema dtype.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Mapping, Optional, Sequence
+from typing import Any, Callable, Dict, Mapping, Optional, Protocol, Sequence, TypeVar
 
 import numpy as np
 
 from surge_tpu_torch.codec.schema import SchemaRegistry
 
+S = TypeVar("S")
+C = TypeVar("C")
+E = TypeVar("E")
+
 StateTree = Dict[str, Any]
 TorchEventHandler = Callable[[StateTree, Mapping[str, Any]], StateTree]
+
+
+class RejectedCommand(Exception):
+    """Domain rejection of a command (reference: Failure(...) from processCommand,
+    surfaced as CommandFailure — scaladsl/common/AggregateRefResult.scala:5-11)."""
+
+
+class AggregateCommandModel(Protocol[S, C, E]):
+    """Sync command model — scaladsl AggregateCommandModel (CommandModels.scala:12-31).
+
+    ``process_command`` returns the events to persist (raise :class:`RejectedCommand` to
+    reject); ``handle_event`` is the pure fold the engine applies — and the function the
+    batched replay path folds.
+    """
+
+    def initial_state(self, aggregate_id: str) -> Optional[S]:
+        return None
+
+    def process_command(self, state: Optional[S], command: C) -> Sequence[E]: ...
+
+    def handle_event(self, state: Optional[S], event: E) -> Optional[S]: ...
+
+
+class AsyncAggregateCommandModel(Protocol[S, C, E]):
+    """Async variant — scaladsl AsyncAggregateCommandModel (CommandModels.scala:33-52).
+    Used by the multilanguage bridge where handlers are RPCs to another process
+    (GenericAsyncAggregateCommandModel.scala:14-104)."""
+
+    def initial_state(self, aggregate_id: str) -> Optional[S]:
+        return None
+
+    async def process_command(self, state: Optional[S], command: C) -> Sequence[E]: ...
+
+    async def handle_events(self, state: Optional[S], events: Sequence[E]) -> Optional[S]: ...
+
+
+class AggregateEventModel(Protocol[S, E]):
+    """Event-engine-only model — scaladsl/event/AggregateEventModel.scala:10-38.
+    ``apply_events`` folds externally-produced events; there is no command side."""
+
+    def initial_state(self, aggregate_id: str) -> Optional[S]:
+        return None
+
+    def apply_events(self, state: Optional[S], events: Sequence[E]) -> Optional[S]: ...
 
 
 def fold_events(model: Any, state: Any, events: Sequence[Any]) -> Any:

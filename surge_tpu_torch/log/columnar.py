@@ -1,10 +1,11 @@
 """Columnar event-log segments, the bulk-replay storage format — the port's
-copy of the parts of ``surge_tpu/log/columnar.py`` a cold start uses:
-:class:`ColumnarSegmentWriter` (chunks and snapshot sections), :func:`read_segment`,
-:func:`segment_info`, :func:`read_segment_snapshots` and
-:func:`build_segment_from_topic`. The file format is the reference's, byte for
-byte; the reader also takes the delta chunks and watermark sections the
-reference's incremental extend appends (framed in an ``EXTB`` section).
+copy of ``surge_tpu/log/columnar.py``: :class:`ColumnarSegmentWriter` (chunks,
+snapshot sections, and the incremental ``extend`` with its watermark
+sections), :func:`read_segment`, :func:`segment_info`,
+:func:`read_segment_snapshots`, :func:`build_segment_from_topic` and
+:func:`extend_segment_from_topic`. The file format is the reference's, byte
+for byte, the delta chunks and watermark sections of an extend included
+(framed in an ``EXTB`` section).
 
 The port writes every payload raw (codec 0), which the reference reads; a
 payload the reference stored SLZ-compressed (codec 1) raises on read
@@ -54,13 +55,52 @@ def _read_payload(data: bytes, codec: int, raw_len: int) -> bytes:
 
 
 class ColumnarSegmentWriter:
-    """Writes a fresh segment: aggregate-range chunks, then snapshot sections."""
+    """Writes a fresh segment (aggregate-range chunks, then snapshot
+    sections), or extends an existing one (:meth:`extend`)."""
 
     def __init__(self, path: str, extra_header: Optional[dict] = None) -> None:
         self.path = path
         self._file = None
         self._schema: Optional[dict] = None
         self._extra = dict(extra_header or {})
+        self._extend_target: Optional[str] = None
+
+    @classmethod
+    def extend(cls, path: str) -> "ColumnarSegmentWriter":
+        """Open an existing segment for appending delta sections. The header
+        stays as it is; updated watermarks ride a watermark section
+        (:meth:`write_watermarks`), and chunks whose schema differs from the
+        header's carry per-chunk overrides in their meta. The delta sections
+        are staged in memory and appended on ``close()`` as ONE length-framed
+        ``EXTB`` section (fsync'd): readers check the frame's length, so a
+        torn append is ignored whole."""
+        import io
+
+        with open(path, "rb") as f:
+            head = f.read(8)
+            if head[:4] != MAGIC:
+                raise ValueError(f"{path}: not a columnar segment")
+            (hlen,) = struct.unpack("<I", head[4:8])
+            schema = json.loads(f.read(hlen))
+        w = cls(path, extra_header=schema.get("extra"))
+        w._schema = schema
+        w._file = io.BytesIO()
+        w._extend_target = path
+        return w
+
+    def write_watermarks(self, watermarks: dict,
+                         state_watermarks: Optional[dict] = None) -> None:
+        """Append a watermark-override section: readers treat the LAST one as
+        authoritative over the header's build-time extra."""
+        if self._file is None:
+            raise ValueError("no open segment")
+        meta_obj: dict = {"watermarks": {str(k): int(v)
+                                         for k, v in watermarks.items()}}
+        if state_watermarks is not None:
+            meta_obj["state_watermarks"] = {str(k): int(v)
+                                            for k, v in state_watermarks.items()}
+        meta = json.dumps(meta_obj).encode()
+        self._file.write(struct.pack("<II", WATERMARK_MARKER, len(meta)) + meta)
 
     def _write_header(self, schema: dict) -> None:
         # a per-build identity (the restore's wire cache keys on it), and any
@@ -151,6 +191,16 @@ class ColumnarSegmentWriter:
 
     def close(self) -> None:
         if self._file is None:
+            return
+        if self._extend_target is not None:
+            blob = self._file.getvalue()
+            self._file = None
+            if blob:
+                frame = struct.pack("<II", EXTEND_MARKER, len(blob))
+                with open(self._extend_target, "ab") as f:
+                    f.write(frame + blob)
+                    f.flush()
+                    os.fsync(f.fileno())
             return
         self._file.flush()
         self._file.close()
@@ -460,3 +510,101 @@ def build_segment_from_topic(log, topic: str, registry, deserialize_event,
     finally:
         shutil.rmtree(spill_dir, ignore_errors=True)
     return {"aggregate_order": ordered, **segment_info(path)}
+
+
+def extend_segment_from_topic(log, topic: str, registry, deserialize_event,
+                              path: str, encode_event=None,
+                              chunk_aggregates: int = 65536,
+                              state_topic: Optional[str] = None) -> dict:
+    """Incremental segment maintenance: append DELTA chunks covering the
+    events between the segment's recorded watermarks and the topic's current
+    end, a snapshot section for aggregates whose post-build changes were
+    state-only, then a watermark-override section. No-op when nothing new
+    exists. Returns ``segment_info(path)``.
+
+    Delta chunks declare no derived columns: their events' ordinals continue
+    each aggregate's, so positional columns are stored (the chunk meta
+    carries the schema override) and the restore continues each aggregate's
+    fold from its already-restored state."""
+    from surge_tpu_torch.codec.tensor import encode_events_columnar
+    from surge_tpu_torch.log.transport import page_keyed_records
+    from surge_tpu_torch.serialization import SerializedMessage
+
+    info = segment_info(path)
+    extra = info["schema"].get("extra", {})
+    base_wm = {int(p): int(off)
+               for p, off in (extra.get("watermarks") or {}).items()}
+    partitions = sorted(base_wm) if base_wm else list(
+        range(log.num_partitions(topic)))
+
+    # the new watermark is captured BEFORE the scan and clamps it: commits
+    # that land mid-extend wait for the next extend
+    delta: dict[int, dict[str, list]] = {}
+    new_wm: dict[str, int] = {}
+    delta_keys: set[str] = set()
+    for p in partitions:
+        new_wm[str(p)] = log.end_offset(topic, p)
+        per_key: dict[str, list] = {}
+        for r in page_keyed_records(log, topic, p, start=base_wm.get(p, 0),
+                                    upto=int(new_wm[str(p)])):
+            ev = deserialize_event(SerializedMessage(key=r.key, value=r.value))
+            if encode_event is not None:
+                ev = encode_event(ev)
+            per_key.setdefault(r.key, []).append(ev)
+            delta_keys.add(r.key)
+        if per_key:
+            delta[p] = per_key
+
+    state_wm: Optional[dict] = None
+    snapshots_by_partition: dict[int, list[tuple]] = {}
+    if state_topic is not None:
+        base_state_wm = {int(p): int(off) for p, off in
+                         (extra.get("state_watermarks") or {}).items()}
+        state_wm = {}
+        for p in range(log.num_partitions(state_topic)):
+            # aggregates changed in the delta window WITHOUT delta events
+            # (state-only publishes): carry their newest snapshot
+            window_keys: set = set()
+            offset = base_state_wm.get(p, 0)
+            while True:
+                batch = log.read(state_topic, p, from_offset=offset,
+                                 max_records=10_000)
+                if not batch:
+                    break
+                window_keys.update(r.key for r in batch
+                                   if r.key is not None
+                                   and r.key not in delta_keys)
+                offset = batch[-1].offset + 1
+            if window_keys:
+                latest = log.latest_by_key(state_topic, p)
+                items = [(k, latest[k].value) for k in sorted(window_keys)
+                         if k in latest and latest[k].value]
+                if items:
+                    snapshots_by_partition[p] = items
+            state_wm[str(p)] = log.end_offset(state_topic, p)
+
+    if not delta and not snapshots_by_partition:
+        return info
+
+    # a key living only in snapshot sections has no chunk state to continue a
+    # fold from: its delta goes in as a fresh snapshot, not an event chunk
+    snapshot_keys = {k for k, _ in read_segment_snapshots(path)}
+    with ColumnarSegmentWriter.extend(path) as writer:
+        for p in sorted(delta):
+            keys = sorted(k for k in delta[p] if k not in snapshot_keys)
+            demoted = sorted(k for k in delta[p] if k in snapshot_keys)
+            if demoted and state_topic is not None:
+                latest = log.latest_by_key(state_topic, p)
+                snapshots_by_partition.setdefault(p, []).extend(
+                    (k, latest[k].value) for k in demoted
+                    if k in latest and latest[k].value)
+            for start in range(0, len(keys), chunk_aggregates):
+                chunk_ids = keys[start: start + chunk_aggregates]
+                colev = encode_events_columnar(
+                    registry, [delta[p][k] for k in chunk_ids])
+                colev.aggregate_ids = list(chunk_ids)
+                writer.append(colev, partition=p)
+        for p in sorted(snapshots_by_partition):
+            writer.append_snapshots(snapshots_by_partition[p], partition=p)
+        writer.write_watermarks(new_wm, state_wm)
+    return segment_info(path)

@@ -1,0 +1,680 @@
+"""Metrics registry — sensors fanning values into statistics providers.
+
+Equivalent of modules/metrics/src/main/scala/surge/metrics/Metrics.scala:126-228 +
+Sensor.scala:9-39: a named-sensor registry where each sensor updates one or more
+:mod:`~surge_tpu_torch.metrics.statistics` providers, with recording levels
+(``surge.metrics.recording-level``: Info < Debug < Trace, MetricsConfig), the
+high-level instrument types (counter / gauge / timer / rate), snapshot export
+(``get_metrics`` / ``metric_descriptions`` / ``as_html`` — Metrics.scala:220-281), and
+the ~20 predeclared engine metrics (Metrics.scala:20-115) via :func:`engine_metrics`.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from enum import IntEnum
+from typing import Dict, List, Optional
+
+from surge_tpu_torch.metrics.statistics import (
+    Count,
+    ExponentialWeightedMovingAverage,
+    FusedTimerStats,
+    Max,
+    MetricValueProvider,
+    Min,
+    MostRecentValue,
+    RateHistogram,
+    TimeBucketHistogram,
+)
+
+__all__ = [
+    "MetricInfo",
+    "Metrics",
+    "RecordingLevel",
+    "Sensor",
+    "Timer",
+    "engine_metrics",
+]
+
+
+class RecordingLevel(IntEnum):
+    """Metrics.scala RecordingLevel: a sensor records iff its level <= configured."""
+
+    INFO = 0
+    DEBUG = 1
+    TRACE = 2
+
+
+@dataclass(frozen=True)
+class MetricInfo:
+    name: str
+    description: str = ""
+    tags: tuple = ()
+
+
+@dataclass
+class _Registered:
+    info: MetricInfo
+    provider: MetricValueProvider
+
+
+class Sensor:
+    """One named recording point fanning into N providers (Sensor.scala:9-39)."""
+
+    def __init__(self, name: str, level: RecordingLevel, enabled: bool) -> None:
+        self.name = name
+        self.level = level
+        self.enabled = enabled
+        self._providers: List[MetricValueProvider] = []
+
+    def add_metric(self, info: MetricInfo, provider: MetricValueProvider,
+                   registry: "Metrics") -> None:
+        self._providers.append(provider)
+        registry._register(info, provider)
+
+    def record(self, value: float = 1.0, timestamp: Optional[float] = None) -> None:
+        if not self.enabled:
+            return
+        ts = timestamp if timestamp is not None else time.time()
+        for p in self._providers:
+            p.update(value, ts)
+
+
+class _TimerContext:
+    """Slots-based timing context: ``@contextmanager`` generators cost ~10us
+    per use, and the engine opens several timer contexts per command."""
+
+    __slots__ = ("_sensor", "_t0")
+
+    def __init__(self, sensor: Sensor) -> None:
+        self._sensor = sensor
+
+    def __enter__(self) -> "_TimerContext":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._sensor.record((time.perf_counter() - self._t0) * 1000.0)
+        return False
+
+
+class Timer:
+    """EWMA + min/max/p99 over millisecond durations (the reference timer shape)."""
+
+    def __init__(self, sensor: Sensor) -> None:
+        self._sensor = sensor
+
+    def record_ms(self, ms: float) -> None:
+        self._sensor.record(ms)
+
+    def time(self) -> _TimerContext:
+        return _TimerContext(self._sensor)
+
+    async def time_async(self, awaitable):
+        t0 = time.perf_counter()
+        try:
+            return await awaitable
+        finally:
+            self.record_ms((time.perf_counter() - t0) * 1000.0)
+
+
+class Metrics:
+    """The registry (Metrics.scala:126-228).
+
+    ``exemplars=True`` makes every timer's histogram capture the active trace
+    id per recording (OpenMetrics exemplars — docs/observability.md); off by
+    default so the engine hot path pays nothing."""
+
+    def __init__(self, recording_level: RecordingLevel = RecordingLevel.INFO,
+                 exemplars: bool = False) -> None:
+        self.recording_level = recording_level
+        self.exemplars = exemplars
+        self._sensors: Dict[str, Sensor] = {}
+        self._metrics: Dict[str, _Registered] = {}
+
+    # -- core ---------------------------------------------------------------------------
+
+    def sensor(self, name: str, level: RecordingLevel = RecordingLevel.INFO) -> Sensor:
+        if name not in self._sensors:
+            self._sensors[name] = Sensor(name, level,
+                                         enabled=level <= self.recording_level)
+        return self._sensors[name]
+
+    def _register(self, info: MetricInfo, provider: MetricValueProvider) -> None:
+        self._metrics[info.name] = _Registered(info, provider)
+
+    # -- instruments --------------------------------------------------------------------
+
+    def counter(self, info: MetricInfo, level: RecordingLevel = RecordingLevel.INFO) -> Sensor:
+        s = self.sensor(info.name, level)
+        if info.name not in self._metrics:
+            s.add_metric(info, Count(), self)
+        return s
+
+    def gauge(self, info: MetricInfo, level: RecordingLevel = RecordingLevel.INFO) -> Sensor:
+        s = self.sensor(info.name, level)
+        if info.name not in self._metrics:
+            s.add_metric(info, MostRecentValue(), self)
+        return s
+
+    def timer(self, info: MetricInfo, level: RecordingLevel = RecordingLevel.INFO) -> Timer:
+        s = self.sensor(info.name, level)
+        if info.name not in self._metrics:
+            # ONE fused provider records all four statistics per observation
+            # (the pre-fusion layout dispatched four provider updates per
+            # recording — a real cost at per-command rates); the export names
+            # are unchanged: the fused provider itself reports the EWMA under
+            # the base name, min/max export through views, and .p99 registers
+            # the embedded histogram so the OpenMetrics exposition still sees
+            # a real TimeBucketHistogram
+            fused = FusedTimerStats(TimeBucketHistogram(
+                exemplars=self.exemplars))
+            s.add_metric(info, fused, self)
+            self._register(MetricInfo(f"{info.name}.min",
+                                      f"min of {info.name}"),
+                           fused.min_view())
+            self._register(MetricInfo(f"{info.name}.max",
+                                      f"max of {info.name}"),
+                           fused.max_view())
+            self._register(MetricInfo(f"{info.name}.p99",
+                                      f"p99 of {info.name}"),
+                           fused.histogram)
+        return Timer(s)
+
+    def rate(self, info: MetricInfo, level: RecordingLevel = RecordingLevel.INFO) -> Sensor:
+        """1/5/15-minute event rates (Metrics.scala rate registration)."""
+        s = self.sensor(info.name, level)
+        if f"{info.name}.one-minute-rate" not in self._metrics:
+            for label, secs in (("one-minute-rate", 60.0), ("five-minute-rate", 300.0),
+                                ("fifteen-minute-rate", 900.0)):
+                s.add_metric(MetricInfo(f"{info.name}.{label}", info.description),
+                             RateHistogram(secs), self)
+        return s
+
+    # -- export (Metrics.scala:220-281) --------------------------------------------------
+
+    def get_metrics(self) -> Dict[str, float]:
+        return {name: r.provider.get_value() for name, r in sorted(self._metrics.items())}
+
+    def metric_descriptions(self) -> Dict[str, str]:
+        return {name: r.info.description for name, r in sorted(self._metrics.items())}
+
+    def as_html(self) -> str:
+        rows = "".join(
+            f"<tr><td>{name}</td><td>{value:.4g}</td></tr>"
+            for name, value in self.get_metrics().items())
+        return f"<table><tr><th>metric</th><th>value</th></tr>{rows}</table>"
+
+
+# -- predeclared engine metrics (Metrics.scala:20-115 + PersistentActor MetricsQuiver) --
+
+
+@dataclass
+class EngineMetrics:
+    """The standard engine instrument set, created once per engine."""
+
+    registry: Metrics
+    state_fetch_timer: Timer = field(init=False)
+    command_handling_timer: Timer = field(init=False)
+    event_handling_timer: Timer = field(init=False)
+    serialization_timer: Timer = field(init=False)
+    deserialization_timer: Timer = field(init=False)
+    publish_timer: Timer = field(init=False)
+    flush_timer: Timer = field(init=False)
+    replay_timer: Timer = field(init=False)
+    command_rate: Sensor = field(init=False)
+    rejection_rate: Sensor = field(init=False)
+    error_rate: Sensor = field(init=False)
+    publish_failure_counter: Sensor = field(init=False)
+    fence_counter: Sensor = field(init=False)
+    # group-commit publisher lane instruments (surge_tpu_torch.engine.publisher):
+    # batch formation, adaptive linger, and the pipelined in-flight window
+    producer_batch_records: Sensor = field(init=False)
+    producer_batch_commits: Sensor = field(init=False)
+    producer_linger_timer: Timer = field(init=False)
+    producer_in_flight: Sensor = field(init=False)
+    producer_lane_pending: Sensor = field(init=False)
+    replay_events_per_sec: Sensor = field(init=False)
+    live_entities: Sensor = field(init=False)
+    standby_lag: Sensor = field(init=False)
+    # per-stage replay profile (DEBUG level: free at INFO, populated by
+    # surge_tpu_torch.replay.profiler when a profiler is attached to the engine)
+    replay_encode_timer: Timer = field(init=False)
+    replay_h2d_timer: Timer = field(init=False)
+    replay_compile_timer: Timer = field(init=False)
+    replay_dispatch_timer: Timer = field(init=False)
+    replay_fetch_timer: Timer = field(init=False)
+    replay_refresh_timer: Timer = field(init=False)
+    replay_profile_windows: Sensor = field(init=False)
+    # device-resident materialized state plane (surge_tpu_torch.replay.resident_state):
+    # the on-chip KTable's occupancy, incremental-fold cadence and read lane
+    resident_occupancy: Sensor = field(init=False)
+    resident_fold_round_timer: Timer = field(init=False)
+    resident_feed_timer: Timer = field(init=False)
+    resident_fold_lag: Sensor = field(init=False)
+    resident_gather_batch: Sensor = field(init=False)
+    resident_fallbacks: Sensor = field(init=False)
+    resident_fallbacks_lag: Sensor = field(init=False)
+    resident_fallbacks_lane_error: Sensor = field(init=False)
+    resident_fallbacks_poison: Sensor = field(init=False)
+    resident_fallbacks_untracked: Sensor = field(init=False)
+    resident_evictions: Sensor = field(init=False)
+    # device observatory (replay/ledger.py): per-round padding-waste and
+    # dispatch-efficiency accounting off the refresh-round ledger
+    resident_padding_waste_ratio: Sensor = field(init=False)
+    resident_dispatch_occupancy: Sensor = field(init=False)
+    resident_events_per_dispatch_us: Sensor = field(init=False)
+    resident_round_events: Sensor = field(init=False)
+    resident_shard_skew: Sensor = field(init=False)
+    resident_bucket_dispatches: Sensor = field(init=False)
+    resident_bucket_fill_ratio: Sensor = field(init=False)
+    # TPU scan engine over columnar segments (surge_tpu_torch.replay.query): the
+    # analytics plane's scan cadence and coverage
+    query_scan_timer: Timer = field(init=False)
+    query_scanned_events: Sensor = field(init=False)
+    query_result_rows: Sensor = field(init=False)
+    query_scan_rows: Sensor = field(init=False)
+    query_pushdown_selectivity: Sensor = field(init=False)
+    # incremental materialized views + changefeeds (surge_tpu_torch.replay.views):
+    # per-round view folds off the resident plane's refresh feed
+    views_fold_timer: Timer = field(init=False)
+    views_delta_rows: Sensor = field(init=False)
+    views_subscribers: Sensor = field(init=False)
+    views_resume_gap_rounds: Sensor = field(init=False)
+    # log compaction + state checkpoints (surge_tpu_torch.log.compactor /
+    # surge_tpu_torch.store.checkpoint — the bounded-cold-start subsystem)
+    compaction_runs: Sensor = field(init=False)
+    compaction_bytes_reclaimed: Sensor = field(init=False)
+    compaction_records_dropped: Sensor = field(init=False)
+    compaction_timer: Timer = field(init=False)
+    compaction_max_dirty_ratio: Sensor = field(init=False)
+    checkpoint_writes: Sensor = field(init=False)
+    checkpoint_events_folded: Sensor = field(init=False)
+    checkpoint_timer: Timer = field(init=False)
+    checkpoint_age: Sensor = field(init=False)
+    checkpoint_lag_events: Sensor = field(init=False)
+    # leader failover + fault-injection plane (surge_tpu_torch.log.server /
+    # surge_tpu_torch.log.client / surge_tpu_torch.testing.faults)
+    failover_promotions: Sensor = field(init=False)
+    failover_fencings: Sensor = field(init=False)
+    failover_truncated_records: Sensor = field(init=False)
+    failover_redirects: Sensor = field(init=False)
+    failover_rolls: Sensor = field(init=False)
+    # client-side failover latency histograms (surge_tpu_torch.log.client): the
+    # redirect/roll reconnect cost and the jittered backoff actually slept —
+    # their buckets carry OpenMetrics exemplars when the registry has
+    # exemplar capture on (the active-span contextvar is threaded through
+    # the pipelined retry pool, so a failover bucket links to the command
+    # trace that rode through the failover)
+    failover_redirect_timer: Timer = field(init=False)
+    failover_backoff_timer: Timer = field(init=False)
+    faults_injected: Sensor = field(init=False)
+    faults_armed: Sensor = field(init=False)
+    # tail-based trace sampling (surge_tpu_torch.tracing.tail): the engine-side
+    # kept/dropped tallies and the in-flight span-buffer gauge — shared
+    # names with the broker quiver, same pattern as the failover counters
+    trace_kept: Sensor = field(init=False)
+    trace_dropped: Sensor = field(init=False)
+    trace_tail_buffer: Sensor = field(init=False)
+    # saga / process-manager plane (surge_tpu_torch.saga.manager): the driver
+    # population and terminal-outcome tallies of this engine's SagaManager
+    saga_active: Sensor = field(init=False)
+    saga_completed: Sensor = field(init=False)
+    saga_compensated: Sensor = field(init=False)
+    saga_dead_letter: Sensor = field(init=False)
+    saga_step_timer: Timer = field(init=False)
+    # consistency observatory (surge_tpu_torch.observability.audit): the shadow-
+    # replay / digest-compare / dedup-probe findings and cadence
+    audit_rounds: Sensor = field(init=False)
+    audit_cohort_size: Sensor = field(init=False)
+    audit_divergent_rows: Sensor = field(init=False)
+    audit_digest_mismatches: Sensor = field(init=False)
+    audit_dedup_holes: Sensor = field(init=False)
+    audit_unresolved: Sensor = field(init=False)
+    audit_round_timer: Timer = field(init=False)
+
+    def __post_init__(self) -> None:
+        m, MI = self.registry, MetricInfo
+        self.state_fetch_timer = m.timer(MI(
+            "surge.aggregate.state-fetch-timer", "ms to fetch state from the store"))
+        self.command_handling_timer = m.timer(MI(
+            "surge.aggregate.command-handling-timer", "ms in process_command"))
+        self.event_handling_timer = m.timer(MI(
+            "surge.aggregate.event-handling-timer", "ms folding events"))
+        self.serialization_timer = m.timer(MI(
+            "surge.aggregate.state-serialization-timer", "ms serializing outputs"))
+        self.deserialization_timer = m.timer(MI(
+            "surge.aggregate.state-deserialization-timer", "ms deserializing snapshots"))
+        self.publish_timer = m.timer(MI(
+            "surge.aggregate.event-publish-timer", "ms from publish to commit ack"))
+        self.flush_timer = m.timer(MI(
+            "surge.producer.flush-timer", "ms per flush transaction"))
+        self.replay_timer = m.timer(MI(
+            "surge.replay.rebuild-timer",
+            "ms per bulk state rebuild (segment build if any + replay fold + "
+            "snapshot overlay + indexer prime)"))
+        self.command_rate = m.rate(MI(
+            "surge.engine.command-rate", "commands processed"))
+        self.rejection_rate = m.rate(MI(
+            "surge.engine.rejection-rate", "commands rejected"))
+        self.error_rate = m.rate(MI(
+            "surge.engine.error-rate", "command failures"))
+        self.publish_failure_counter = m.counter(MI(
+            "surge.producer.publish-failures", "failed publish batches"))
+        self.fence_counter = m.counter(MI(
+            "surge.producer.fences", "producer fencing events"))
+        self.producer_batch_records = m.gauge(MI(
+            "surge.producer.batch-records",
+            "records in the last committed publish batch (group-commit size)"))
+        self.producer_batch_commits = m.counter(MI(
+            "surge.producer.batch-commits",
+            "committed publish batches (group commits)"))
+        self.producer_linger_timer = m.timer(MI(
+            "surge.producer.linger-timer",
+            "ms a batch's FIRST publish waited from enqueue to commit "
+            "dispatch (the adaptive linger actually paid)"))
+        self.producer_in_flight = m.gauge(MI(
+            "surge.producer.in-flight-txns",
+            "pipelined publish transactions in flight on the last lane to "
+            "record (bounded by surge.producer.max-in-flight)"))
+        self.producer_lane_pending = m.gauge(MI(
+            "surge.producer.lane-pending",
+            "publishes still queued in the recording lane after a batch "
+            "was drained (backpressure indicator)"))
+        self.replay_events_per_sec = m.gauge(MI(
+            "surge.replay.rebuild-events-per-sec",
+            "events/s of the latest bulk rebuild, end to end (compare "
+            "bench.py's cold_replay_events_per_sec for the fold alone)"))
+        self.live_entities = m.gauge(MI(
+            "surge.engine.live-entities", "currently resident aggregate entities"))
+        self.standby_lag = m.gauge(MI(
+            "surge.state-store.standby-lag",
+            "records behind on partitions this node is warm standby for"))
+        dbg = RecordingLevel.DEBUG
+        self.replay_encode_timer = m.timer(MI(
+            "surge.replay.profile.encode-timer",
+            "ms host-side wire-packing/bucketing per replay window"), level=dbg)
+        self.replay_h2d_timer = m.timer(MI(
+            "surge.replay.profile.h2d-timer",
+            "ms transferring a replay window/corpus host-to-device"), level=dbg)
+        self.replay_compile_timer = m.timer(MI(
+            "surge.replay.profile.compile-timer",
+            "ms of fold dispatches that triggered an XLA compile"), level=dbg)
+        self.replay_dispatch_timer = m.timer(MI(
+            "surge.replay.profile.dispatch-timer",
+            "ms of steady (pre-compiled) fold dispatches"), level=dbg)
+        self.replay_fetch_timer = m.timer(MI(
+            "surge.replay.profile.fetch-timer",
+            "ms from dispatch to the fetch barrier closing device time "
+            "(a real device-to-host fetch, never block_until_ready)"), level=dbg)
+        self.replay_refresh_timer = m.timer(MI(
+            "surge.replay.profile.refresh-timer",
+            "ms per incremental resident-plane refresh round "
+            "(encode + h2d + fold dispatch of one committed batch)"),
+            level=dbg)
+        self.replay_profile_windows = m.counter(MI(
+            "surge.replay.profile.windows",
+            "replay windows/tiles observed by the profiler"), level=dbg)
+        self.resident_occupancy = m.gauge(MI(
+            "surge.replay.resident.slab-occupancy",
+            "aggregates resident in the on-device state slab"))
+        self.resident_fold_round_timer = m.timer(MI(
+            "surge.replay.resident.fold-round-timer",
+            "ms per incremental fold round (committed batch -> slab)"))
+        self.resident_feed_timer = m.timer(MI(
+            "surge.replay.resident.feed-timer",
+            "ms per refresh round's host feed leg: committed-tail read "
+            "(native record-index views) + event deserialize (one batch "
+            "decode on the native feed; surge.replay.resident.native-feed)"))
+        self.resident_fold_lag = m.gauge(MI(
+            "surge.replay.resident.fold-lag-records",
+            "events committed past the plane's fold watermarks (reads fall "
+            "back to the host store beyond "
+            "surge.replay.resident.max-lag-records)"))
+        self.resident_gather_batch = m.gauge(MI(
+            "surge.replay.resident.gather-batch-size",
+            "reads coalesced into the last device gather (the d2h "
+            "amortization the batched read path exists for)"))
+        self.resident_fallbacks = m.counter(MI(
+            "surge.replay.resident.fallback-reads",
+            "reads answered by the host KV store instead of the device "
+            "slab (every cause; the .lag-exceeded/.lane-error/"
+            ".unschema-poison/.untracked splits name why)"))
+        self.resident_fallbacks_lag = m.counter(MI(
+            "surge.replay.resident.fallback-reads.lag-exceeded",
+            "fallback reads whose partition fold watermark lagged past "
+            "surge.replay.resident.max-lag-records (or require_current "
+            "demanded lag 0)"))
+        self.resident_fallbacks_lane_error = m.counter(MI(
+            "surge.replay.resident.fallback-reads.lane-error",
+            "fallback reads failed over by a gather-lane device/decode "
+            "error (the batch went to the host store)"))
+        self.resident_fallbacks_poison = m.counter(MI(
+            "surge.replay.resident.fallback-reads.unschema-poison",
+            "fallback reads of aggregates poisoned off the tensor path "
+            "(an event outside the replay schema)"))
+        self.resident_fallbacks_untracked = m.counter(MI(
+            "surge.replay.resident.fallback-reads.untracked",
+            "fallback reads of aggregates the plane does not track "
+            "(never admitted, revoked, or the plane is stopped/unseeded)"))
+        self.resident_evictions = m.counter(MI(
+            "surge.replay.resident.evictions",
+            "aggregates evicted from the slab to the host spill "
+            "(capacity pressure)"))
+        self.resident_padding_waste_ratio = m.gauge(MI(
+            "surge.replay.resident.padding-waste-ratio",
+            "last refresh round's dispatched-to-occupied event-slot ratio "
+            "(lane bucket x window width over events folded; the "
+            "over-dispatch the fold-efficiency SLO bounds)"))
+        self.resident_dispatch_occupancy = m.gauge(MI(
+            "surge.replay.resident.dispatch-occupancy",
+            "last refresh round's occupied fraction of dispatched event "
+            "slots (1 / padding-waste-ratio)"))
+        self.resident_events_per_dispatch_us = m.gauge(MI(
+            "surge.replay.resident.events-per-dispatch-us",
+            "events folded per microsecond of device fold dispatch in the "
+            "last refresh round (the fold roofline's measured ev/us)"))
+        self.resident_round_events = m.gauge(MI(
+            "surge.replay.resident.round-events",
+            "events folded by the last refresh round"))
+        self.resident_shard_skew = m.gauge(MI(
+            "surge.replay.resident.shard-skew",
+            "last refresh round's max/mean lane-deal imbalance across mesh "
+            "shards (1.0 = perfectly balanced; single-device rounds read 1)"))
+        self.resident_bucket_dispatches = m.gauge(MI(
+            "surge.replay.resident.bucket-dispatches",
+            "bucket refresh programs dispatched by the last refresh round "
+            "(one fused admission+fold+scatter per occupied length bucket; "
+            "dense rounds read 1 per fold group)"))
+        self.resident_bucket_fill_ratio = m.gauge(MI(
+            "surge.replay.resident.bucket-fill-ratio",
+            "occupied fraction of the last refresh round's dispatched lane "
+            "slots (lanes dealt over pow2 lane-bucket capacity summed across "
+            "bucket programs; 1.0 = every dispatched lane held an aggregate)"))
+        self.query_scan_timer = m.timer(MI(
+            "surge.query.scan-timer",
+            "ms per segment scan / state query (device dispatch + the one "
+            "result pull; mesh scans add one collective per output column)"))
+        self.query_scanned_events = m.counter(MI(
+            "surge.query.scanned-events",
+            "events scanned by the query engine (projection pushdown means "
+            "untouched columns were never decompressed)"))
+        self.query_result_rows = m.gauge(MI(
+            "surge.query.result-rows",
+            "aggregates in the last query result (post-filter, pre-RPC "
+            "surge.query.max-rows cap)"))
+        self.query_scan_rows = m.counter(MI(
+            "surge.query.scan-rows",
+            "result rows emitted by the query engine across scans "
+            "(cumulative twin of the per-scan result-rows gauge)"))
+        self.query_pushdown_selectivity = m.gauge(MI(
+            "surge.query.pushdown-selectivity",
+            "matched/scanned event fraction of the last scan (how much the "
+            "predicate pushdown narrowed before grouping)"))
+        self.views_fold_timer = m.timer(MI(
+            "surge.replay.views.fold-timer",
+            "ms per materialized-view fold round (all registered views' "
+            "incremental folds of one refresh round's committed tail)"))
+        self.views_delta_rows = m.counter(MI(
+            "surge.replay.views.delta-rows",
+            "changed view rows emitted to changefeed deltas across fold "
+            "rounds"))
+        self.views_subscribers = m.gauge(MI(
+            "surge.replay.views.subscribers",
+            "live changefeed subscriptions across materialized views"))
+        self.views_resume_gap_rounds = m.gauge(MI(
+            "surge.replay.views.resume-gap-rounds",
+            "fold rounds bridged by the last reconciling snapshot (a resume "
+            "watermark older than the delta ring, or from the future)"))
+        self.compaction_runs = m.counter(MI(
+            "surge.log.compaction.runs", "partition compaction passes"))
+        self.compaction_bytes_reclaimed = m.counter(MI(
+            "surge.log.compaction.bytes-reclaimed",
+            "segment bytes reclaimed by compaction"))
+        self.compaction_records_dropped = m.counter(MI(
+            "surge.log.compaction.records-dropped",
+            "superseded records + GC'd tombstones dropped by compaction"))
+        self.compaction_timer = m.timer(MI(
+            "surge.log.compaction.duration-timer",
+            "ms per partition compaction pass"))
+        self.compaction_max_dirty_ratio = m.gauge(MI(
+            "surge.log.compaction.max-dirty-ratio",
+            "max dirty ratio across compacted partitions at the last "
+            "scheduler wake"))
+        self.checkpoint_writes = m.counter(MI(
+            "surge.store.checkpoint.writes", "state checkpoints written"))
+        self.checkpoint_events_folded = m.counter(MI(
+            "surge.store.checkpoint.events-folded",
+            "events folded by the incremental checkpoint materializer"))
+        self.checkpoint_timer = m.timer(MI(
+            "surge.store.checkpoint.duration-timer",
+            "ms per checkpoint advance+write"))
+        self.checkpoint_age = m.gauge(MI(
+            "surge.store.checkpoint.age-seconds",
+            "seconds since the newest durable checkpoint"))
+        self.checkpoint_lag_events = m.gauge(MI(
+            "surge.store.checkpoint.lag-events",
+            "events committed past the newest checkpoint's watermarks "
+            "(the cold-start tail a restore would fold)"))
+        self.failover_promotions = m.counter(MI(
+            "surge.log.failover.promotions",
+            "follower-to-leader promotions performed by this process's "
+            "broker (admin RPC or leader-death prober)"))
+        self.failover_fencings = m.counter(MI(
+            "surge.log.failover.fencings",
+            "leader-epoch fences observed: this broker was deposed and "
+            "demoted to follower"))
+        self.failover_truncated_records = m.counter(MI(
+            "surge.log.failover.truncated-records",
+            "divergent unreplicated records truncated on demotion "
+            "(KIP-101 tail rollback to the new leader's epoch-start)"))
+        self.failover_redirects = m.counter(MI(
+            "surge.log.failover.redirects",
+            "NOT_LEADER redirects this client followed to the hinted leader"))
+        self.failover_rolls = m.counter(MI(
+            "surge.log.failover.client-rolls",
+            "broker-endpoint-list failovers after UNAVAILABLE (the client "
+            "rolled to the next broker)"))
+        self.failover_redirect_timer = m.timer(MI(
+            "surge.log.failover.redirect-timer",
+            "ms per client reconnect onto a hinted/next broker (NOT_LEADER "
+            "redirect follow or UNAVAILABLE endpoint roll) — the wiring "
+            "half of client-visible failover latency"))
+        self.failover_backoff_timer = m.timer(MI(
+            "surge.log.failover.backoff-timer",
+            "ms actually slept per jittered client retry backoff "
+            "(mid-promotion waits; the patience half of client-visible "
+            "failover latency)"))
+        self.faults_injected = m.counter(MI(
+            "surge.log.faults.injected",
+            "faults fired by the armed fault-injection plane"))
+        self.faults_armed = m.gauge(MI(
+            "surge.log.faults.armed",
+            "fault rules currently armed on this process's plane "
+            "(0 outside chaos experiments)"))
+        self.trace_kept = m.counter(MI(
+            "surge.trace.kept",
+            "traces the tail sampler kept into this process's trace ring "
+            "(erred, breached surge.trace.tail.latency-ms, landed in an SLO "
+            "breach window, or explicitly marked)"))
+        self.trace_dropped = m.counter(MI(
+            "surge.trace.dropped",
+            "completed or evicted traces the tail sampler dropped "
+            "(sampled-out, over the keep budget, or evicted by the span-"
+            "buffer bound)"))
+        self.trace_tail_buffer = m.gauge(MI(
+            "surge.trace.tail-buffer-spans",
+            "spans buffered for in-flight traces awaiting their tail "
+            "keep/drop decision (bounded by "
+            "surge.trace.tail.max-buffer-spans)"))
+        self.saga_active = m.gauge(MI(
+            "surge.saga.active",
+            "in-flight sagas with a live driver task on this manager"))
+        self.saga_completed = m.counter(MI(
+            "surge.saga.completed",
+            "sagas that reached COMPLETED (every step committed)"))
+        self.saga_compensated = m.counter(MI(
+            "surge.saga.compensated",
+            "sagas that reached COMPENSATED (every committed step undone)"))
+        self.saga_dead_letter = m.counter(MI(
+            "surge.saga.dead-letter",
+            "sagas parked in the dead letter (a compensation was rejected "
+            "or exhausted its retry budget — operator intervention needed)"))
+        self.saga_step_timer = m.timer(MI(
+            "surge.saga.step-timer",
+            "ms per saga step dispatch (forward or compensation), command "
+            "send to participant ack"))
+        self.audit_rounds = m.counter(MI(
+            "surge.audit.rounds",
+            "consistency-audit cycles completed (shadow replay + digest "
+            "compare + dedup probe)"))
+        self.audit_cohort_size = m.gauge(MI(
+            "surge.audit.cohort-size",
+            "resident aggregates shadow-replayed in the last audit cycle"))
+        self.audit_divergent_rows = m.counter(MI(
+            "surge.audit.divergent-rows",
+            "live slab rows whose bytes diverged from their shadow refold "
+            "(state corruption findings; fenced against evict/re-admit and "
+            "rebalance races)"))
+        self.audit_digest_mismatches = m.counter(MI(
+            "surge.audit.digest-mismatches",
+            "cross-replica chained-digest compares that disagreed at the "
+            "same offset below the high-watermark (replica log divergence)"))
+        self.audit_dedup_holes = m.counter(MI(
+            "surge.audit.dedup-holes",
+            "dedup probes where replaying a recently-acked txn_seq was "
+            "ACCEPTED instead of answered from the dedup window"))
+        self.audit_unresolved = m.gauge(MI(
+            "surge.audit.unresolved-divergences",
+            "divergences found and not yet re-verified clean (drives the "
+            "state-divergence SLO; 0 on a healthy fleet)"))
+        self.audit_round_timer = m.timer(MI(
+            "surge.audit.round-timer",
+            "ms per consistency-audit cycle, sample to verdict"))
+        # Deprecation aliases for the earlier renames: dashboards keyed
+        # to the old identifiers — including a timer's .min/.max/.p99
+        # sub-metrics — keep working for a release window; the alias providers
+        # join the same sensor, so every recording lands under both names.
+        # Guarded like every base instrument so re-construction on a shared
+        # registry cannot stack duplicate providers. Remove after the window.
+        old_timer = "surge.replay.batch-timer"
+        if old_timer not in m._metrics:
+            alias = f"DEPRECATED alias of {self.replay_timer._sensor.name}"
+            sensor = self.replay_timer._sensor
+            sensor.add_metric(MI(old_timer, alias),
+                              ExponentialWeightedMovingAverage(), m)
+            sensor.add_metric(MI(f"{old_timer}.min", alias), Min(), m)
+            sensor.add_metric(MI(f"{old_timer}.max", alias), Max(), m)
+            sensor.add_metric(MI(f"{old_timer}.p99", alias),
+                              TimeBucketHistogram(), m)
+        old_gauge = "surge.replay.events-per-sec"
+        if old_gauge not in m._metrics:
+            self.replay_events_per_sec.add_metric(MI(
+                old_gauge,
+                "DEPRECATED alias of surge.replay.rebuild-events-per-sec"),
+                MostRecentValue(), m)
+
+
+def engine_metrics(registry: Optional[Metrics] = None) -> EngineMetrics:
+    return EngineMetrics(registry if registry is not None else Metrics())

@@ -1,21 +1,26 @@
-"""Counter bounded context, replay half — the counterpart of the tensor path of
-``surge_tpu/models/counter.py``: the ``State`` and event dataclasses,
+"""Counter bounded context — the port's copy of ``surge_tpu/models/counter.py``:
+the domain dataclasses (commands, events, ``State``), :class:`CounterModel`
+(``process_command`` and the scalar fold the ``cpu`` restore backend runs),
+the JSON byte formats (``command_formatting``, ``state_formatting``,
+``event_formatting``; the same bytes as the reference's), and the tensor path:
 ``make_registry`` (same wire bit widths, so an event packs into one byte when
 ``sequence_number`` is derived), ``make_replay_spec`` with torch handlers and
-``make_associative_fold``; and :class:`CounterModel`, the scalar fold the
-``cpu`` restore backend runs.
+``make_associative_fold``.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from surge_tpu_torch.codec.schema import SchemaRegistry
-from surge_tpu_torch.engine.model import ReplayHandlers, ReplaySpec
+from surge_tpu_torch.engine.model import RejectedCommand, ReplayHandlers, ReplaySpec
+from surge_tpu_torch.serialization import (JsonCommandFormatting, JsonEventFormatting,
+                                          JsonFormatting)
 
 
 @dataclass(frozen=True)
@@ -23,6 +28,44 @@ class State:
     aggregate_id: str
     count: int
     version: int
+
+
+@dataclass(frozen=True)
+class Increment:
+    aggregate_id: str
+
+
+@dataclass(frozen=True)
+class Decrement:
+    aggregate_id: str
+
+
+@dataclass(frozen=True)
+class DoNothing:
+    aggregate_id: str
+
+
+@dataclass(frozen=True)
+class CreateNoOpEvent:
+    aggregate_id: str
+
+
+@dataclass(frozen=True)
+class FailCommandProcessing:
+    aggregate_id: str
+    error_msg: str
+
+
+@dataclass(frozen=True)
+class CreateExceptionThrowingEvent:
+    aggregate_id: str
+    error_msg: str
+
+
+@dataclass(frozen=True)
+class CreateUnserializableEvent:
+    aggregate_id: str
+    error_msg: str
 
 
 @dataclass(frozen=True)
@@ -45,6 +88,17 @@ class NoOpEvent:
     sequence_number: int
 
 
+class ExceptionThrowingError(RuntimeError):
+    """Raised when an ExceptionThrowingEvent is folded (fault-injection fixture)."""
+
+
+@dataclass(frozen=True)
+class ExceptionThrowingEvent:
+    aggregate_id: str
+    sequence_number: int
+    error_msg: str
+
+
 @dataclass(frozen=True)
 class UnserializableEvent:
     aggregate_id: str
@@ -56,23 +110,41 @@ INCREMENTED, DECREMENTED, NOOP, UNSERIALIZABLE = 0, 1, 2, 3
 
 
 class CounterModel:
-    """The scalar event fold (``handle_event``) of the reference's
-    ``CounterModel``, over the events this module carries."""
-
-    def initial_state(self, aggregate_id: str):
+    def initial_state(self, aggregate_id: str) -> Optional[State]:
         return None
 
-    def handle_event(self, state, event):
+    def process_command(self, state: Optional[State], command) -> Sequence[object]:
+        agg_id = command.aggregate_id
+        seq = (state.version if state else 0) + 1
+        if isinstance(command, Increment):
+            return [CountIncremented(agg_id, 1, seq)]
+        if isinstance(command, Decrement):
+            return [CountDecremented(agg_id, 1, seq)]
+        if isinstance(command, DoNothing):
+            return []
+        if isinstance(command, CreateNoOpEvent):
+            return [NoOpEvent(agg_id, seq)]
+        if isinstance(command, FailCommandProcessing):
+            raise RejectedCommand(command.error_msg)
+        if isinstance(command, CreateExceptionThrowingEvent):
+            return [ExceptionThrowingEvent(agg_id, seq, command.error_msg)]
+        if isinstance(command, CreateUnserializableEvent):
+            return [UnserializableEvent(agg_id, seq, command.error_msg)]
+        raise RejectedCommand(f"unknown command {command!r}")
+
+    def handle_event(self, state: Optional[State], event) -> Optional[State]:
         current = state if state is not None else State(event.aggregate_id, 0, 0)
         if isinstance(event, CountIncremented):
-            return State(current.aggregate_id,
-                         current.count + event.increment_by, event.sequence_number)
+            return State(current.aggregate_id, current.count + event.increment_by, event.sequence_number)
         if isinstance(event, CountDecremented):
-            return State(current.aggregate_id,
-                         current.count - event.decrement_by, event.sequence_number)
+            return State(current.aggregate_id, current.count - event.decrement_by, event.sequence_number)
+        if isinstance(event, NoOpEvent):
+            return current
         if isinstance(event, UnserializableEvent):
             return State(current.aggregate_id, current.count, event.sequence_number)
-        return current  # NoOpEvent
+        if isinstance(event, ExceptionThrowingEvent):
+            raise ExceptionThrowingError(event.error_msg)
+        return current
 
     def replay_spec(self):
         return make_replay_spec()
@@ -159,3 +231,57 @@ def make_associative_fold():
         lift=lift, combine=combine, apply=apply,
         identity={"d_count": np.int32(0), "has": np.bool_(False),
                   "last_seq": np.int32(0)})
+
+
+# --- byte formats (play-json Format equivalents, TestBoundedContext.scala:84-110) ---
+
+_EVENT_TYPES = {c.__name__: c for c in (CountIncremented, CountDecremented, NoOpEvent,
+                                        ExceptionThrowingEvent, UnserializableEvent)}
+
+
+def _event_to_dict(e) -> dict:
+    if isinstance(e, UnserializableEvent):
+        # parity: the reference's play-json format for this event throws — that is the
+        # point of the CreateUnserializableEvent poison command (TestBoundedContext
+        # serialization-failure path). The tensor path still folds it.
+        raise ValueError(f"deliberately unserializable event: {e.error_msg}")
+    return _to_tagged_dict(e)
+
+
+def _event_from_dict(d: dict):
+    return _from_tagged_dict(_EVENT_TYPES, d)
+
+
+_COMMAND_TYPES = {c.__name__: c for c in (Increment, Decrement, DoNothing,
+                                          CreateNoOpEvent, FailCommandProcessing,
+                                          CreateExceptionThrowingEvent,
+                                          CreateUnserializableEvent)}
+
+
+def _to_tagged_dict(obj) -> dict:
+    d = {k: getattr(obj, k) for k in obj.__dataclass_fields__}
+    d["_type"] = type(obj).__name__
+    return d
+
+
+def _from_tagged_dict(type_map: dict, d: dict):
+    d = dict(d)
+    return type_map[d.pop("_type")](**d)
+
+
+def command_formatting() -> JsonCommandFormatting:
+    """Command codec for cross-node delivery (remote transport tests)."""
+    return JsonCommandFormatting(
+        to_dict=_to_tagged_dict,
+        from_dict=lambda d: _from_tagged_dict(_COMMAND_TYPES, d))
+
+
+def state_formatting() -> JsonFormatting:
+    return JsonFormatting(
+        to_dict=lambda s: {"aggregate_id": s.aggregate_id, "count": s.count, "version": s.version},
+        from_dict=lambda d: State(**d))
+
+
+def event_formatting() -> JsonEventFormatting:
+    return JsonEventFormatting(to_dict=_event_to_dict, from_dict=_event_from_dict,
+                               key_of=lambda e: e.aggregate_id)

@@ -1,17 +1,47 @@
-"""Round accounting helpers — a copy of ``waste_ratio`` and ``shard_skew`` from
-``surge_tpu/replay/ledger.py``. The ledger itself (``ReplayLedger``) is not
-ported: the resident state plane calls any duck-typed ``ledger`` it is given
-(``record_round``, ``record_evict``, ``record_gather``)."""
+"""Refresh-round ledger: the device observatory's bounded flight ring.
+
+The resident plane's fold wall is invisible in coarse instruments: the
+round timer says a fold took 4 ms, but not that 9 of every 10 dispatched
+event slots were padding (BENCH_NOTES round 9 — the ~8 µs/event-slot,
+~9× over-dispatch wall ROADMAP item 2 attacks). This module records every
+refresh round's anatomy into a bounded ring in the flight-recorder shape:
+
+- ``round`` — lanes dealt, events folded, dispatched vs occupied event
+  slots (the padding-waste ratio), per-stage wall µs (feed/decode → encode
+  → dispatch; the h2d rides the dispatch on the refresh path), window/batch
+  bucketing, per-shard lane-deal sizes on the mesh path, and the round's
+  fallback-cause deltas;
+- ``gather`` — one batched-read drain: reads coalesced, rows gathered,
+  coalesce wait and dispatch→fetch-barrier→decode µs;
+- ``query`` — one scan/state query: rows, scanned/matched events
+  (pushdown selectivity), elapsed µs.
+
+Recording is allocation-cheap (one tuple into a ``deque`` under a short
+lock — the :class:`~surge_tpu_torch.observability.flight.FlightRecorder`
+discipline) so the sites stay armed in production, NOT debug-gated: you
+cannot attack over-dispatch you cannot continuously measure. ``dump()``
+emits the exact flight envelope (``events`` + the mono↔wall header pair),
+so a ledger dump interleaves with engine/broker flight dumps through
+:func:`~surge_tpu_torch.observability.flight.merge_dumps` and a device stall
+lands on incident timelines next to the breach that paged. The
+``DumpReplayLedger`` admin RPC pulls it; ``tools/roofline_record.py``
+snapshots :meth:`ReplayLedger.summary` into append-only JSONL rows
+comparable against docs/roofline.md.
+"""
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, List, Optional, Sequence
+
+from surge_tpu_torch.observability.flight import FlightRecorder
+
+__all__ = ["ReplayLedger", "shard_skew", "waste_ratio"]
 
 
 def waste_ratio(dispatched: float, occupied: float) -> float:
-    """Dispatched/occupied event slots of a round (1.0 = zero padding). A
-    round that folded nothing reports 0.0 — "no work" must be tellable apart
-    from "perfectly packed work"."""
+    """Dispatched/occupied event slots of a round (1.0 = zero padding).
+    A round that folded nothing reports 0.0 — "no work" must be tellable
+    apart from "perfectly packed work"."""
     if occupied <= 0:
         return 0.0
     return dispatched / occupied
@@ -27,3 +57,164 @@ def shard_skew(deal_sizes: Optional[Sequence[int]]) -> float:
         return 1.0
     mean = total / len(deal_sizes)
     return max(deal_sizes) / mean
+
+
+class ReplayLedger(FlightRecorder):
+    """Bounded ring of refresh-round / gather / query anatomy events.
+
+    A :class:`FlightRecorder` subclass: same thread-safe ring, same
+    merge-ready dump envelope (``role="ledger"`` puts the rounds on their
+    own lane of a merged timeline). On top of the ring it keeps cheap
+    cumulative totals (under the same lock discipline — single bumps of
+    plain ints/floats), so :meth:`summary` can answer the roofline
+    questions (measured ev/s, µs/slot, waste ratio) without walking the
+    ring.
+    """
+
+    def __init__(self, capacity: int = 512, name: str = "",
+                 role: str = "ledger") -> None:
+        super().__init__(capacity=capacity, name=name, role=role)
+        self.totals: Dict[str, float] = {
+            "rounds": 0, "events": 0, "lanes": 0, "windows": 0,
+            "dispatched_slots": 0, "occupied_slots": 0,
+            "dispatch_us": 0.0, "encode_us": 0.0, "feed_us": 0.0,
+            "bucket_programs": 0, "bucket_lane_slots": 0,
+            "gathers": 0, "gathered_rows": 0, "gather_wait_us": 0.0,
+            "queries": 0, "query_rows": 0,
+            "view_rounds": 0, "view_delta_rows": 0, "view_fold_us": 0.0,
+        }
+
+    # -- recording sites ----------------------------------------------------------------
+
+    def record_round(self, *, events: int, lanes: int, windows: int,
+                     dispatched: int, occupied: int, batch: int, width: int,
+                     feed_us: float, encode_us: float, dispatch_us: float,
+                     deal_sizes: Optional[Sequence[int]] = None,
+                     causes: Optional[Dict[str, int]] = None,
+                     evictions: int = 0,
+                     buckets: Optional[Sequence[Dict]] = None,
+                     bucket_table: Optional[int] = None) -> None:
+        """One refresh round's anatomy. ``dispatched``/``occupied`` are
+        event SLOTS (lane bucket × window width summed over the round's
+        window dispatches vs events actually folded); ``causes`` carries
+        the round's fallback-cause deltas; ``deal_sizes`` the per-shard
+        lane-deal lengths on the mesh path (None single-device).
+
+        ``buckets`` (bucketed refresh dispatch) carries one dict
+        per fused bucket program the round issued — ``{width, lanes_b,
+        lanes, windows, dispatched, occupied, ragged}`` — and
+        ``bucket_table`` the size of the layout's bounded compile-signature
+        table; both optional so pre-bucketing callers stay source-compatible."""
+        t = self.totals
+        t["rounds"] += 1
+        t["events"] += events
+        t["lanes"] += lanes
+        t["windows"] += windows
+        t["dispatched_slots"] += dispatched
+        t["occupied_slots"] += occupied
+        t["dispatch_us"] += dispatch_us
+        t["encode_us"] += encode_us
+        t["feed_us"] += feed_us
+        if buckets:
+            t["bucket_programs"] += len(buckets)
+            t["bucket_lane_slots"] += sum(
+                int(bk.get("lanes_b", 0)) for bk in buckets)
+        self.record(
+            "round", events=events, lanes=lanes, windows=windows,
+            dispatched=dispatched, occupied=occupied,
+            waste=round(waste_ratio(dispatched, occupied), 3),
+            batch=batch, width=width,
+            feed_us=round(feed_us, 1), encode_us=round(encode_us, 1),
+            dispatch_us=round(dispatch_us, 1),
+            deal_sizes=list(deal_sizes) if deal_sizes else None,
+            skew=round(shard_skew(deal_sizes), 3),
+            causes=dict(causes) if causes else None,
+            evictions=evictions or None,
+            buckets=[dict(bk) for bk in buckets] if buckets else None,
+            bucket_table=bucket_table)
+
+    def record_gather(self, *, reads: int, rows: int, wait_us: float,
+                      dispatch_us: float, fetch_us: float,
+                      decode_us: float) -> None:
+        """One gather-lane drain: ``reads`` coalesced into one device
+        gather of ``rows`` rows; ``wait_us`` is the coalesce wait (first
+        enqueue → drain start), the rest the device legs."""
+        t = self.totals
+        t["gathers"] += 1
+        t["gathered_rows"] += rows
+        t["gather_wait_us"] += wait_us
+        self.record("gather", reads=reads, rows=rows,
+                    wait_us=round(wait_us, 1),
+                    dispatch_us=round(dispatch_us, 1),
+                    fetch_us=round(fetch_us, 1),
+                    decode_us=round(decode_us, 1))
+
+    def record_query(self, *, rows: int, scanned: int, matched: int,
+                     elapsed_us: float, kind: str = "scan") -> None:
+        """One query-engine scan: result rows + pushdown selectivity."""
+        t = self.totals
+        t["queries"] += 1
+        t["query_rows"] += rows
+        self.record("query", kind=kind, rows=rows, scanned=scanned,
+                    matched=matched,
+                    selectivity=round(matched / scanned, 4) if scanned else 0.0,
+                    elapsed_us=round(elapsed_us, 1))
+
+    def record_evict(self, count: int, *, resident: int, cause: str) -> None:
+        self.record("evict", count=count, resident=resident, cause=cause)
+
+    def record_view_round(self, *, views: int, rows: int, events: int,
+                          fold_us: float) -> None:
+        """One materialized-view fold round: ``views`` folded the round's
+        ``events`` committed events, emitting ``rows`` changed view rows to
+        the changefeeds (surge_tpu_torch.replay.views)."""
+        t = self.totals
+        t["view_rounds"] += 1
+        t["view_delta_rows"] += rows
+        t["view_fold_us"] += fold_us
+        self.record("view-round", views=views, rows=rows, events=events,
+                    fold_us=round(fold_us, 1))
+
+    # -- rollups ------------------------------------------------------------------------
+
+    def summary(self) -> dict:
+        """The roofline rollup: cumulative totals + the derived ratios the
+        recorder snapshots (waste ratio, µs/slot, ev/s of device dispatch).
+        Plain data — safe in a bench payload, an RPC reply or a JSONL row."""
+        t = dict(self.totals)
+        disp_us = t["dispatch_us"]
+        events = t["events"]
+        return {
+            **{k: (round(v, 1) if isinstance(v, float) else v)
+               for k, v in t.items()},
+            "waste_ratio": round(
+                waste_ratio(t["dispatched_slots"], t["occupied_slots"]), 3),
+            "us_per_slot": round(disp_us / t["dispatched_slots"], 4)
+            if t["dispatched_slots"] else 0.0,
+            "us_per_event": round(disp_us / events, 3) if events else 0.0,
+            "fold_events_per_sec": round(events / (disp_us / 1e6), 1)
+            if disp_us > 0 else 0.0,
+        }
+
+    def round_stages_us(self, last: Optional[int] = None
+                        ) -> Dict[str, List[float]]:
+        """Per-round stage series off the ring (``{stage: [us, ...]}``) —
+        what the bench ladders take medians over."""
+        out: Dict[str, List[float]] = {"feed_us": [], "encode_us": [],
+                                       "dispatch_us": [], "waste": []}
+        for ev in self.events(last):
+            if ev.get("type") != "round":
+                continue
+            for k in out:
+                v = ev.get(k)
+                if v is not None:
+                    out[k].append(float(v))
+        return out
+
+    def dump(self, last: Optional[int] = None) -> dict:
+        """The flight-shape envelope plus the roofline rollup (``summary``)
+        riding alongside ``stats`` — merge consumers ignore it, the
+        roofline recorder and surgetop read it without replaying the ring."""
+        payload = super().dump(last)
+        payload["summary"] = self.summary()
+        return payload

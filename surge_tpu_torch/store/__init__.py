@@ -1,7 +1,9 @@
-"""The keyed state store and its bulk restore — the port's copy of the parts
-of ``surge_tpu/store`` a cold start uses."""
+"""Materialized aggregate-state store — the port's copy of the parts of
+``surge_tpu/store`` the engine reaches: the KV store, the state-store indexer
+and the bulk restores. Checkpoints (``store/checkpoint.py``) are not ported."""
 
 from surge_tpu_torch.store.kv import InMemoryKeyValueStore, KeyValueStore
+from surge_tpu_torch.store.indexer import StateStoreIndexer
 from surge_tpu_torch.store.restore import (
     RestoreResult,
     restore_from_events,
@@ -10,5 +12,5 @@ from surge_tpu_torch.store.restore import (
 )
 
 __all__ = ["InMemoryKeyValueStore", "KeyValueStore", "RestoreResult",
-           "restore_from_events", "restore_from_segment",
+           "StateStoreIndexer", "restore_from_events", "restore_from_segment",
            "restore_from_state_topic"]

@@ -1,0 +1,319 @@
+"""Tracing: OTel-shaped spans + W3C trace-context propagation across async hops.
+
+Equivalents of the reference tracing stack (SURVEY.md §5.1): spans wrap every message
+hop (``ActorWithTracing`` wraps receive; spans created at the AggregateRef ask boundary
+AggregateRefTrait.scala:77-79, in the router/shard KafkaPartitionShardRouterActor.scala:216,
+and in the aggregate actor PersistentActor.scala:166-168); ``TracedMessage`` carries W3C
+``traceparent`` headers across hops (internal/tracing/TracedMessage.scala:10-26);
+inject/extract mirrors ``TracePropagation.asHeaders``/``childFrom``
+(TracePropagation.scala:13-61 — W3CTraceContextPropagator format:
+``00-{trace_id:32x}-{span_id:16x}-{flags:02x}``).
+
+No OpenTelemetry SDK dependency: :class:`Tracer` is the pluggable surface (users supply
+an exporter; the reference's noop-by-default ``openTelemetry`` override,
+SurgeGenericBusinessLogicTrait.scala:33), with :class:`InMemoryTracer` for tests and
+:class:`NoopTracer` as the default.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import json
+import random
+import re
+import threading
+import time
+import uuid
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Mapping, Optional
+
+__all__ = [
+    "InMemoryTracer",
+    "JsonlSpanExporter",
+    "NoopTracer",
+    "Span",
+    "SpanContext",
+    "Tracer",
+    "active_span",
+    "active_trace_id",
+    "extract_context",
+    "inject_context",
+]
+
+#: the span the current context is inside of (set by ``with span:``) — what
+#: OpenMetrics exemplars read so a histogram bucket can link to the trace that
+#: produced its sample (contextvars: isolated per thread AND per asyncio task)
+_ACTIVE_SPAN: "contextvars.ContextVar[Optional[Span]]" = contextvars.ContextVar(
+    "surge_active_span", default=None)
+
+
+def active_span() -> Optional["Span"]:
+    """The span the current context is inside of, or None — the parenting
+    anchor for spans started on the caller's behalf (the log client parents
+    its broker-call spans here so a pipelined retry's failover histograms
+    carry the ORIGINATING command's trace id, not a fresh root's)."""
+    return _ACTIVE_SPAN.get()
+
+
+def active_trace_id() -> Optional[str]:
+    """Trace id of the innermost SAMPLED span the caller is running under, or
+    None — the exemplar source for histograms (an unsampled trace has no
+    exported spans to link to, so it yields no exemplar either)."""
+    span = _ACTIVE_SPAN.get()
+    if span is not None and span.context.sampled:
+        return span.context.trace_id
+    return None
+
+_TRACEPARENT = "traceparent"
+_RE_TRACEPARENT = re.compile(
+    r"^(?P<version>[0-9a-f]{2})-(?P<trace>[0-9a-f]{32})-(?P<span>[0-9a-f]{16})-(?P<flags>[0-9a-f]{2})$")
+
+
+@dataclass(frozen=True)
+class SpanContext:
+    trace_id: str  # 32 hex chars
+    span_id: str  # 16 hex chars
+    sampled: bool = True
+
+
+def _new_trace_id() -> str:
+    return uuid.uuid4().hex
+
+
+def _new_span_id() -> str:
+    return uuid.uuid4().hex[:16]
+
+
+def inject_context(ctx: SpanContext, headers: Optional[Dict[str, str]] = None) -> Dict[str, str]:
+    """TracePropagation.asHeaders: W3C traceparent into a header map."""
+    out = dict(headers or {})
+    out[_TRACEPARENT] = f"00-{ctx.trace_id}-{ctx.span_id}-{'01' if ctx.sampled else '00'}"
+    return out
+
+
+def extract_context(headers: Mapping[str, str]) -> Optional[SpanContext]:
+    """TracePropagation.childFrom: parse traceparent; None if absent/malformed."""
+    raw = headers.get(_TRACEPARENT, "")
+    m = _RE_TRACEPARENT.match(raw)
+    if not m:
+        return None
+    return SpanContext(trace_id=m.group("trace"), span_id=m.group("span"),
+                       sampled=m.group("flags") == "01")
+
+
+@dataclass
+class Span:
+    """One operation's span. ``finish`` hands it to the tracer's exporter.
+
+    Carries BOTH clocks: ``start_time``/``end_time`` are wall stamps (the
+    human anchor, and what the JSONL exporter ships), ``start_mono``/
+    ``end_mono`` are ``time.monotonic()`` stamps — the ordering truth the
+    cross-process trace assembly (observability/anatomy.py) places spans by,
+    via the same per-host mono↔wall offset estimation the flight recorder's
+    merge uses, so a skewed wall clock cannot scramble a trace."""
+
+    name: str
+    context: SpanContext
+    parent_id: Optional[str] = None
+    start_time: float = field(default_factory=time.time)
+    end_time: Optional[float] = None
+    start_mono: float = field(default_factory=time.monotonic)
+    end_mono: Optional[float] = None
+    attributes: Dict[str, object] = field(default_factory=dict)
+    events: List[tuple] = field(default_factory=list)
+    status: str = "ok"  # "ok" | "error"
+    _tracer: Optional["Tracer"] = field(default=None, repr=False)
+    _cv_token: Optional[object] = field(default=None, repr=False, compare=False)
+
+    def set_attribute(self, key: str, value: object) -> "Span":
+        self.attributes[key] = value
+        return self
+
+    def add_event(self, name: str, attributes: Optional[dict] = None) -> "Span":
+        """TracingHelper's log op."""
+        self.events.append((time.time(), name, attributes or {}))
+        return self
+
+    def record_exception(self, exc: BaseException) -> "Span":
+        """TracingHelper's error op."""
+        self.status = "error"
+        self.add_event("exception", {"type": type(exc).__name__, "message": str(exc)})
+        return self
+
+    def activate(self) -> "Span":
+        """Make this span the context's ACTIVE span (what exemplar capture
+        reads) without a ``with`` block — for call sites that manage
+        ``finish()`` manually, like the entity's receive span. ``finish()``
+        (and ``__exit__``) deactivates."""
+        if self._cv_token is None:
+            self._cv_token = _ACTIVE_SPAN.set(self)
+        return self
+
+    def _deactivate(self) -> None:
+        if self._cv_token is None:
+            return
+        token, self._cv_token = self._cv_token, None
+        # only restore the snapshot if THIS span is still the active one:
+        # finishing a stored span from another context (callback, timeout
+        # handler) or out of nesting order must never clobber an unrelated
+        # still-open span's activation
+        if _ACTIVE_SPAN.get() is not self:
+            return
+        try:
+            _ACTIVE_SPAN.reset(token)
+        except ValueError:  # token from another context; we ARE active: clear
+            _ACTIVE_SPAN.set(None)
+
+    def finish(self) -> None:
+        self._deactivate()
+        if self.end_time is None:
+            self.end_time = time.time()
+            self.end_mono = time.monotonic()
+            if self._tracer is not None:
+                self._tracer._on_finished(self)
+
+    @property
+    def duration_ms(self) -> float:
+        return ((self.end_time or time.time()) - self.start_time) * 1000.0
+
+    # context-manager sugar
+    def __enter__(self) -> "Span":
+        return self.activate()
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc is not None:
+            self.record_exception(exc)
+        self.finish()  # deactivates too
+
+
+class Tracer:
+    """Span factory with an exporter hook and head-based probability sampling.
+
+    ``sample_rate`` is the probability a NEW trace (root span) is sampled; the
+    decision rides the W3C ``sampled`` flag so every downstream hop — including
+    remote ones — honors the head's verdict without its own coin flip. Unsampled
+    spans are still created (context propagation stays intact, attributes are
+    cheap dict writes) but never reach the exporter.
+
+    ``tail`` (a :class:`surge_tpu_torch.tracing.tail.TailSampler`, attached by
+    :func:`surge_tpu_torch.tracing.tail.install_tail`) rides BEHIND the head gate:
+    every head-sampled span is also offered to the tail sampler, which
+    buffers per trace and decides keep/drop only once the trace completes
+    (erred, breached the latency threshold, or landed in an SLO breach
+    window). Head sampling stays the fast-path cost gate; the tail decision
+    rides completed traces only.
+    """
+
+    def __init__(self, service: str = "surge",
+                 exporter: Optional[Callable[[Span], None]] = None,
+                 sample_rate: float = 1.0,
+                 seed: Optional[int] = None) -> None:
+        self.service = service
+        self._exporter = exporter
+        self.sample_rate = sample_rate
+        self.tail = None  # Optional[tail.TailSampler]
+        self._rng = random.Random(seed)
+
+    def _sample_root(self) -> bool:
+        if self.sample_rate >= 1.0:
+            return True
+        if self.sample_rate <= 0.0:
+            return False
+        return self._rng.random() < self.sample_rate
+
+    def start_span(self, name: str,
+                   parent: Optional[SpanContext | Span] = None,
+                   headers: Optional[Mapping[str, str]] = None) -> Span:
+        """Child of ``parent`` (or of the context in ``headers``), else a new root."""
+        parent_ctx = parent.context if isinstance(parent, Span) else parent
+        if parent_ctx is None and headers is not None:
+            parent_ctx = extract_context(headers)
+        if parent_ctx is not None:
+            ctx = SpanContext(trace_id=parent_ctx.trace_id, span_id=_new_span_id(),
+                              sampled=parent_ctx.sampled)
+            span = Span(name=name, context=ctx, parent_id=parent_ctx.span_id,
+                        _tracer=self)
+        else:
+            ctx = SpanContext(trace_id=_new_trace_id(), span_id=_new_span_id(),
+                              sampled=self._sample_root())
+            span = Span(name=name, context=ctx, _tracer=self)
+        if self.tail is not None and ctx.sampled:
+            self.tail.on_start(span)
+        return span
+
+    def _on_finished(self, span: Span) -> None:
+        if not span.context.sampled:
+            return
+        if self._exporter is not None:
+            self._exporter(span)
+        if self.tail is not None:
+            self.tail.on_finish(span)
+
+
+class NoopTracer(Tracer):
+    """Default: spans are created but never exported (noop OpenTelemetry default)."""
+
+    def __init__(self) -> None:
+        super().__init__(exporter=None)
+
+
+class InMemoryTracer(Tracer):
+    """Collects finished spans for assertions (test exporter)."""
+
+    def __init__(self, service: str = "surge", sample_rate: float = 1.0,
+                 seed: Optional[int] = None) -> None:
+        self.finished: List[Span] = []
+        super().__init__(service=service, exporter=self.finished.append,
+                         sample_rate=sample_rate, seed=seed)
+
+    def spans_named(self, name: str) -> List[Span]:
+        return [s for s in self.finished if s.name == name]
+
+
+class JsonlSpanExporter:
+    """Span exporter appending one JSON object per finished span to a file.
+
+    The production-shaped sink for the no-SDK tracer: the JSONL stream is what
+    an OTel collector sidecar (or plain ``jq``) tails. Thread-safe — spans
+    finish on the event loop AND on executor/log-client threads — and flushed
+    per span so a crash loses at most the span being written.
+
+    Usage: ``tracer = Tracer(exporter=JsonlSpanExporter(path), sample_rate=0.1)``.
+    """
+
+    def __init__(self, path: str) -> None:
+        self.path = path
+        self._lock = threading.Lock()
+        self._file = open(path, "a", encoding="utf-8")
+
+    def __call__(self, span: Span) -> None:
+        record = {
+            "name": span.name,
+            "trace_id": span.context.trace_id,
+            "span_id": span.context.span_id,
+            "parent_id": span.parent_id,
+            "start_time": span.start_time,
+            "end_time": span.end_time,
+            "duration_ms": span.duration_ms,
+            "status": span.status,
+            "attributes": span.attributes,
+            "events": [{"time": t, "name": n, "attributes": a}
+                       for t, n, a in span.events],
+        }
+        line = json.dumps(record, default=str)
+        with self._lock:
+            if self._file.closed:
+                return
+            self._file.write(line + "\n")
+            self._file.flush()
+
+    def close(self) -> None:
+        with self._lock:
+            if not self._file.closed:
+                self._file.close()
+
+    def __enter__(self) -> "JsonlSpanExporter":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()

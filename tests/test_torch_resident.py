@@ -318,13 +318,35 @@ def test_auto_on_cuda_without_kernel_step_raises(monkeypatch):
         eng.tile_backend
 
 
+#: the key families the port carries: the replay engine's, the query
+#: engine's and those of the engine's host modules
+PORT_KEY_FAMILIES = (
+    "surge.replay.", "surge.query.", "surge.producer.", "surge.state-store.",
+    "surge.aggregate.", "surge.serialization.", "surge.metrics.",
+    "surge.trace.", "surge.store.checkpoint.", "surge.log.compaction.",
+    "surge.log.failover.", "surge.log.faults.", "surge.health.",
+    "surge.event-loop-prober.", "surge.feature-flags.", "surge.engine.",
+    "surge.audit.")
+
+
 def test_replay_keys_and_defaults_match_the_reference():
     for key, value in DEFAULTS.items():
-        assert key.startswith(("surge.replay.", "surge.query."))
+        assert key.startswith(PORT_KEY_FAMILIES), key
         assert JDEFAULTS[key] == value, key
     cfg = Config().with_overrides(surge_replay_time_chunk=99)
     assert cfg.get_int("surge.replay.time-chunk") == 99
     assert cfg.get_int_list("surge.replay.batch-size") == [8192]
+
+
+@pytest.mark.parametrize("key", sorted(DEFAULTS))
+def test_every_port_key_resolves_as_the_reference(key, monkeypatch):
+    """Each key the port carries: the reference's default, of its type, and
+    an environment override coerced to the same value by both packages."""
+    assert type(DEFAULTS[key]) is type(JDEFAULTS[key])
+    assert Config().get(key) == JConfig().get(key)
+    env = key.upper().replace(".", "_").replace("-", "_")
+    monkeypatch.setenv(env, "7" if not isinstance(DEFAULTS[key], bool) else "yes")
+    assert Config().get(key) == JConfig().get(key)
 
 
 @pytest.mark.parametrize("layout", ["dense", "auto", "flat"])
