@@ -72,7 +72,7 @@ first. Phases:
    checkpoint at half of each log, then the tail) and the spilled route
    (~1.05M events, through a throwaway segment), each against its closed
    form;
-9. ``replay_resident_streamed`` on the 1M / 100M wire at 1, 4 and 8
+9. ``replay_resident_streamed`` on the 1M / 100M wire at 1 and 8
    segments in turns with ``upload_resident`` + ``replay_resident``, all
    byte-equal, each arm's wall beside its upload and fold seconds;
 10. ``replay_columnar`` on 1M carts and on the counter corpus cut to 200k
@@ -109,6 +109,18 @@ first. Phases:
    scan_reduce must each launch in the phase. Then each window kernel is
    held against its plain version at every window shape the burst gave it
    that no earlier check held;
+13. mixed aggregate-type replay: the four families in one combined spec
+   (``surge_tpu_torch.replay.mixed``), folded by the kernels' mixed step.
+   K1 (list fold, dense and flat, over 65,536 aggregates, a quarter of each
+   family, interleaved; one non-resident window of 512 x 8,192 lanes; the
+   dense window) and K2 against their plain versions at the plane's window
+   shapes; a cold replay of 1M counters / 20M events, 1M carts, 1M sagas and
+   500k bank accounts (3.5M aggregates, ~50M events) in one corpus, dense
+   and flat, every lane equal to its family's own single-family K1 replay
+   and to the closed forms; a bucketed plane of 262,144 aggregates on 2^17
+   rows and a dense one of 65,536 on 32,768 over a mixed topic, each window
+   one kernel launch, every aggregate read back equal to its family's fold;
+   then each window kernel at every window shape the mixed planes gave it;
 then one JSON line of every kernel's numbers, the card line, and a last line
 ``{"ok": true, "device": {...}}``.
 
@@ -120,6 +132,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import functools
 import json
 import os
 import shutil
@@ -379,28 +392,87 @@ def window_call(c: dict, spec, wire, plain: bool = False, paths=None):
                       spec=spec, wire=wire, **kw)
 
 
+def fold_need(spec, wire, tids, lanes, n_lanes: int,
+              weights=None) -> tuple[int, np.ndarray]:
+    """What folding events of type ids ``tids`` (each in lane ``lanes``,
+    ``weights`` events each, else one) needs: (the events' bytes, the state
+    bytes of each of ``n_lanes`` lanes). A single-family spec: every event
+    its wire bytes and every side column, every lane every state field. A
+    combined spec: an event its wire bytes and the side columns of its own
+    family (the wire alone where no family holds its type id: the step
+    carries the state through it), a lane the state fields of each family
+    its events reach (none for a lane without events)."""
+    from surge_tpu_torch.engine.model import MixedKernelStep
+    from surge_tpu_torch.replay import fold_kernels
+
+    size = {f.name: np.dtype(f.dtype).itemsize for f in spec.registry.state.fields}
+    side = {f.name: np.dtype(f.dtype).itemsize for f in wire.side_fields}
+    tids = np.asarray(tids, np.int64)
+    w = np.ones(len(tids), np.int64) if weights is None else np.asarray(weights, np.int64)
+    step = spec.kernel_step
+    if not isinstance(step, MixedKernelStep):
+        return (int(w.sum()) * (wire.nbytes + sum(side.values())),
+                np.full(n_lanes, sum(size.values()), np.int64))
+    ev = np.full(len(tids), wire.nbytes, np.int64)
+    reached = np.zeros((n_lanes, len(step.parts)), bool)
+    for p, part in enumerate(step.parts):
+        cols = fold_kernels.KERNEL_STEPS[part.step][1]
+        mine = (tids >= part.base) & (tids < part.base + part.num_types)
+        ev[mine] += sum(side.get(c, 0) for c in cols)
+        reached[np.asarray(lanes)[mine], p] = True
+    state = np.zeros(n_lanes, np.int64)
+    codes = reached @ (1 << np.arange(len(step.parts)))
+    for code in np.unique(codes).tolist():
+        names = {f for p, part in enumerate(step.parts) if code >> p & 1
+                 for f in fold_kernels.KERNEL_STEPS[part.step][0]}
+        state[codes == code] = sum(size[n] for n in names)
+    return int((ev * w).sum()), state
+
+
+def wire_type_ids(wire, words: np.ndarray) -> np.ndarray:
+    """The type id of each packed u8 word ``[..., nbytes]`` (-1 at or above
+    the wire's ``num_types``: the kernels carry the state through it)."""
+    word = np.zeros(words.shape[:-1], np.int64)
+    for k in range(words.shape[-1]):
+        word |= words[..., k].astype(np.int64) << (8 * k)
+    tid = word & ((1 << wire.type_bits) - 1)
+    return np.where(tid >= wire.num_types, -1, tid)
+
+
 def window_work(c: dict, spec, wire) -> tuple[int, int]:
     """(bytes, valid steps) one window needs on these inputs, each read or
-    written once: the wire bytes and side values of each slot a live lane
-    folds; every lane's slot (it marks the padding lanes); each live lane's
-    count, its start (ragged) and, on an admitting window, its admit flag;
-    an admitted lane's ordinal and values; each live lane's carry and
-    ordinal read by slot (unless admitted) and written by slot."""
+    written once: the bytes of each slot a live lane folds (``fold_need``);
+    every lane's slot (it marks the padding lanes); each live lane's count,
+    its start (ragged) and, on an admitting window, its admit flag; an
+    admitted lane's ordinal and values; each live lane's ordinal and its
+    state (``fold_need``'s fields) read by slot unless admitted, and written
+    by slot (an admitted lane every field)."""
     from surge_tpu_torch.replay import fold_kernels
 
     t = c["table_np"]
     live = t[fold_kernels.LANE_SLOT] != c["capacity"]
     n_live = int(live.sum())
-    steps = int(np.clip(t[fold_kernels.LANE_COUNT][live], 0, c["width"]).sum())
+    counts = np.clip(t[fold_kernels.LANE_COUNT], 0, c["width"]) * live
+    steps = int(counts.sum())
     admits = t.shape[0] > fold_kernels.LANE_ADMIT
-    admitted = int((t[fold_kernels.LANE_ADMIT][live] != 0).sum()) if admits else 0
+    admitted = (t[fold_kernels.LANE_ADMIT] != 0) & live if admits else np.zeros_like(live)
     fields = spec.registry.state.fields
-    row = sum(np.dtype(f.dtype).itemsize for f in fields) + 4
-    side = sum(np.dtype(f.dtype).itemsize for f in wire.side_fields)
+    full = sum(np.dtype(f.dtype).itemsize for f in fields) + 4
+    lane = np.repeat(np.arange(c["lanes"]), counts)
+    at = np.arange(steps) - np.repeat(np.cumsum(counts) - counts, counts)
+    words = c["words"].cpu().numpy()
+    if c["kind"] == "ragged":
+        start = t[fold_kernels.LANE_START].astype(np.int64)
+        tids = wire_type_ids(wire, words[np.minimum(start[lane] + at, c["rows"] - 1)])
+    else:
+        tids = wire_type_ids(wire, words[at, lane])
+    ev_bytes, state = fold_need(spec, wire, tids, lane, c["lanes"])
+    row = (state + 4)[live]
     table = 4 * (t.shape[1] + n_live * (1 + (c["kind"] == "ragged") + admits)
-                 + admitted * (1 + len(fields)))
-    nbytes = (steps * (wire.nbytes + side) + table
-              + (n_live - admitted) * row + n_live * row)
+                 + int(admitted.sum()) * (1 + len(fields)))
+    adm = admitted[live]
+    nbytes = (ev_bytes + table + int(row[~adm].sum())
+              + int(np.where(adm, full, row).sum()))
     return nbytes, steps
 
 
@@ -511,11 +583,12 @@ def phase_windows() -> dict:
 def check_plane_window_shapes(shapes: dict, checked: set,
                               layout: str = "counter/derived") -> list[dict]:
     """Each window kernel against its plain version at every window shape
-    a plane gave it in phase 4, 6 or 12 (``shapes``: {kind: [[lanes, width,
+    a plane gave it in phase 4, 6, 12 or 13 (``shapes``: {kind: [[lanes, width,
     rows, launches], ...]}) that no earlier check held (``checked``, which
     gains each shape held here), on that plane's layout (the family,
     derived ordinal), timed."""
-    _, spec, wire = next(c for c in kernel_cases() if c[0] == layout)
+    _, spec, wire = next(c for c in kernel_cases() + [mixed_case()]
+                         if c[0] == layout)
     rows = []
     for kind, seen in shapes.items():
         for lanes, width, nrows, _ in seen:
@@ -635,30 +708,36 @@ def list_corpus(layout: str, corpus: str):
 
 
 def list_work(eng, resident, plan, source: str) -> tuple[int, int]:
-    """(bytes, valid steps) one replay's list folds need: the wire bytes and
-    side values of each slot some lane folds (``t < lens - t_base``) read
-    once, each touched lane's length and ordinal (and start, flat) read once
-    and its carry read and written once, plus the work lists and their
-    schedules."""
+    """(bytes, valid steps) one replay's list folds need: the bytes of each
+    slot some lane folds (``t < lens - t_base``; ``fold_need``, each lane's
+    events of the family of its first, as an aggregate's are) read once,
+    each touched lane's length and ordinal (and start, flat) read once and
+    its state (``fold_need``'s fields) read and written once, plus the work
+    lists and their schedules."""
     from surge_tpu_torch.replay import fold_kernels
 
     wire = eng._wire(frozenset(resident.derived_key.items()))
+    n = len(resident.lengths)
     lens = np.zeros(resident.b_pad, dtype=np.int64)
-    lens[:len(resident.lengths)] = resident.lengths
+    lens[:n] = resident.lengths
     touched = np.zeros(resident.b_pad, dtype=bool)
-    steps, extra = 0, 0
+    lane_steps = np.zeros(resident.b_pad, dtype=np.int64)
+    extra = 0
     for bs, i0s, t_bases in ((plan.bs_big, plan.big_i0, plan.big_tb),
                              (plan.bs_small, plan.small_i0, plan.small_tb)):
         for i0, tb in zip(i0s.tolist(), t_bases.tolist()):
-            steps += int(np.clip(lens[i0:i0 + bs] - tb, 0, plan.width).sum())
+            lane_steps[i0:i0 + bs] += np.clip(lens[i0:i0 + bs] - tb, 0, plan.width)
             touched[i0:i0 + bs] = True
         ids, off, tiles = fold_kernels.list_schedule(i0s, bs, resident.b_pad)
         extra += 8 * len(i0s) + 4 * (len(ids) + len(off) + len(tiles))
-    state = sum(np.dtype(f.dtype).itemsize for f in eng.spec.registry.state.fields)
-    side = sum(np.dtype(f.dtype).itemsize for f in wire.side_fields)
+    first = np.full(resident.b_pad, -1, dtype=np.int64)
+    has = np.flatnonzero(resident.lengths > 0)
+    rows = resident.flat_wire[resident.starts[has].astype(np.int64)]
+    first[has] = wire_type_ids(wire, rows.cpu().numpy())
+    ev_bytes, state = fold_need(eng.spec, wire, first, np.arange(resident.b_pad),
+                                resident.b_pad, weights=lane_steps)
     per_lane = 8 + 2 * state + (4 if source == "flat" else 0)
-    return (steps * (wire.nbytes + side) + int(touched.sum()) * per_lane + extra,
-            steps)
+    return ev_bytes + int(per_lane[touched].sum()) + extra, int(lane_steps.sum())
 
 
 def staged(words, sides, bs: int, nbytes: int) -> bool:
@@ -920,11 +999,15 @@ def check_nonres_case(label: str, spec, wire, width: int, bs: int, seed: int,
                                  f"{bs} lanes in {name!r}")
         err = max(err, float(np.abs(g.astype(np.float64) - w.astype(np.float64)).max()))
     steps = int(lens.sum())
-    state = sum(np.dtype(f.dtype).itemsize for f in spec.registry.state.fields)
-    side_b = sum(np.dtype(f.dtype).itemsize for f in wire.side_fields)
     # the slots each lane folds, each touched lane's length, ordinal and
-    # carry in and out, the one-tile list and its schedule
-    nbytes = steps * (wire.nbytes + side_b) + bs * (8 + 2 * state) + 8 + 12
+    # state in and out (fold_need), the one-tile list and its schedule
+    lane = np.repeat(np.arange(bs), lens)
+    at = np.arange(steps) - np.repeat(np.cumsum(lens) - lens, lens)
+    real = np.full((bs, width), -1, np.int64)
+    real[:len(tids)] = tids
+    ev_bytes, state = fold_need(spec, wire, np.where(real[lane, at] < wire.num_types,
+                                                     real[lane, at], -1), lane, bs)
+    nbytes = ev_bytes + int((8 + 2 * state).sum()) + 8 + 12
     row = {"case": label, "width": width, "bs": bs, "valid_steps": steps,
            "bytes": nbytes, "max_abs_err": err}
     if timed:
@@ -1153,9 +1236,12 @@ def split_halves(corpus):
     return part(first), part(~first), cut
 
 
+@functools.cache
 def bank_corpus(num_accounts: int, seed: int):
     """A bank_account columnar corpus: ragged logs of creates (some repeated,
-    some missing so updates land on absent accounts) and balance updates."""
+    some missing so updates land on absent accounts) and balance updates.
+    Made once per argument set: phases 3, 5, 11 and 13 share the 500k
+    accounts (callers never write to a corpus)."""
     from surge_tpu_torch.codec.tensor import ColumnarEvents
     from surge_tpu_torch.models import bank_account as ba
 
@@ -1192,13 +1278,15 @@ def _columnar(n: int, ev_type: np.ndarray, ev_cols: dict):
         derived_cols={"sequence_number": "ordinal"})
 
 
+@functools.cache
 def cart_walk(num_carts: int, seed: int):
     """``(corpus, expected)``: shopping-cart logs with the shape of the
     reference's ``random_cart_log`` (surge_tpu/testing/support.py), walked
     for every cart at once: 0-19 commands, add 60% (item 1-49, quantity 1-3,
     price 100-899), remove 30% (quantity 1-2, at most the items held; none
     held: no event), checkout 10%, which ends the cart. ``expected`` is each
-    cart's state after its log."""
+    cart's state after its log. Made once per argument set (phases 5, 10
+    and 13 share the 1M carts)."""
     from surge_tpu_torch.models import shopping_cart as sc
 
     rng = np.random.default_rng(seed)
@@ -1245,6 +1333,7 @@ SAGA_FIELDS = ("def_id", "num_steps", "status", "step", "committed",
 SAGA_FLOATS = ("c0", "c1", "c2", "c3")
 
 
+@functools.cache
 def saga_walk(num_sagas: int, seed: int):
     """``(corpus, prefix)``: saga logs with the walk of the reference's
     ``random_saga_log`` (surge_tpu/testing/support.py), for every saga at
@@ -1255,7 +1344,8 @@ def saga_walk(num_sagas: int, seed: int):
     compensated); each compensation step undoes the highest pending step,
     10% dead-letter instead, and 10% stop after one. ``prefix[f][k, i]`` is
     field ``f`` of saga ``i`` after its first ``k`` events (the last row
-    holds every saga's final state)."""
+    holds every saga's final state). Made once per argument set (phases 5
+    and 13 share the 1M sagas)."""
     from surge_tpu_torch.saga import model as sg
 
     rng = np.random.default_rng(seed)
@@ -1333,19 +1423,27 @@ def family_corpus(model: str, n: int, seed: int):
     """The cold-replay corpus of a family: ``(corpus, expected final
     states)`` (counter and bank_account expect nothing here)."""
     if model == "shopping_cart":
-        return cart_walk(n, seed)
-    corpus, prefix = saga_walk(n, seed)
+        return cart_walk(n, seed=seed)
+    corpus, prefix = saga_walk(n, seed=seed)
     return corpus, {f: v[-1] for f, v in prefix.items()}
+
+
+@functools.cache
+def counter_corpus(aggregates: int, events: int, seed: int):
+    """``synth_counter_corpus``, made once per argument set (phases 3 and 13
+    share the 1M / 20M corpus)."""
+    from surge_tpu_torch.replay.corpus import synth_counter_corpus
+
+    return synth_counter_corpus(aggregates, events, seed=seed)
 
 
 def phase_resume_and_bank(card: str) -> dict:
     from surge_tpu_torch.config import Config
     from surge_tpu_torch.models import bank_account, counter
-    from surge_tpu_torch.replay.corpus import synth_counter_corpus
     from surge_tpu_torch.replay.engine import ReplayEngine
 
     cfg = Config(overrides=BENCH_CONFIG)
-    corpus = synth_counter_corpus(1_000_000, 20_000_000, seed=3)
+    corpus = counter_corpus(1_000_000, 20_000_000, seed=3)
     first, second, cut = split_halves(corpus)
     eng = ReplayEngine(counter.make_replay_spec(), config=cfg)
     r1 = eng.replay_resident(eng.prepare_resident(first))
@@ -1383,21 +1481,26 @@ def phase_resume_and_bank(card: str) -> dict:
 FAMILY_AGGREGATES = 1_000_000
 #: phase 5's arms: K1's list fold on the dense tiles auto picks and on the
 #: flat corpus, the plain scan (select dispatch: the same fold, fewer eager
-#: ops a step than switch) and the assoc tree fold
+#: ops a step than switch) and the assoc tree fold; phase 13 asks for the
+#: dense tiles by name
 ARMS = {"auto": {}, "flat": {"surge.replay.resident-layout": "flat"},
+        "dense": {"surge.replay.resident-layout": "dense"},
         "xla": {"surge.replay.tile-backend": "xla",
                 "surge.replay.dispatch": "select"},
         "assoc": {"surge.replay.tile-backend": "assoc"}}
 
 
-def run_arm(spec, corpus, arm: str, replays: int, resident=None) -> dict:
+def run_arm(spec, corpus, arm: str, replays: int, resident=None,
+            init_carry=None, device_fold: bool = False) -> dict:
     """One arm of a family's cold replay: pack, upload and warm (unless a
     resident corpus is given) and, but on the plain scan, one untimed
     replay (its first pull pays for the host buffers and the inverse
     permutation: 12-17 ms where the next take 2-6; the plain scan takes
-    seconds), then ``replays`` replays, timed on the host clock (each ends
-    in the device→host pull); the launches made from the reset to the end
-    of the last replay; the last replay's states."""
+    seconds), then ``replays`` replays from ``init_carry``, timed on the
+    host clock (each ends in the device→host pull); the launches made from
+    the reset to the end of the last replay; the last replay's states. With
+    ``device_fold``, the row adds the list folds' device time per replay,
+    the tiles, pad ratio and bound (:func:`list_fold_ms`)."""
     import torch
 
     from surge_tpu_torch.config import Config
@@ -1419,7 +1522,7 @@ def run_arm(spec, corpus, arm: str, replays: int, resident=None) -> dict:
     for i in range(replays + warm):
         l0 = fold_kernels.LAUNCHES["tile_fold_list"]
         f0 = time.perf_counter()
-        res = eng.replay_resident(resident)
+        res = eng.replay_resident(resident, init_carry=init_carry)
         if i >= warm:
             folds.append(time.perf_counter() - f0)
         made = fold_kernels.LAUNCHES["tile_fold_list"] - l0
@@ -1432,12 +1535,15 @@ def run_arm(spec, corpus, arm: str, replays: int, resident=None) -> dict:
         raise AssertionError(f"{arm}: a cold replay launched a window kernel")
     if eng.tile_backend == "pallas" and launches["tile_fold_list"] <= 0:
         raise AssertionError(f"{arm}: the kernel arm launched K1 no time")
-    return {"states": res.states, "resident": resident, "row": {
-        "arm": arm, "backend": eng.tile_backend,
-        "dense": eng._use_dense(resident, plan),
-        "events_per_s_median": resident.num_events / statistics.median(folds),
-        "events_per_s_best": resident.num_events / min(folds),
-        "fold_s": folds, "setup_s": setup_s, "launches": launches}}
+    row = {"arm": arm, "backend": eng.tile_backend,
+           "dense": eng._use_dense(resident, plan),
+           "events_per_s_median": resident.num_events / statistics.median(folds),
+           "events_per_s_best": resident.num_events / min(folds),
+           "fold_s": folds, "setup_s": setup_s, "launches": launches}
+    if device_fold:
+        row["fold_device_ms"], work = list_fold_ms(eng, resident)
+        row.update(work)
+    return {"states": res.states, "resident": resident, "row": row}
 
 
 def same_states(label: str, got: dict, want: dict) -> None:
@@ -2578,13 +2684,13 @@ def phase_restore_events(card: str) -> dict:
 
 # -- phase 9: replay_resident_streamed ----------------------------------------------
 
-STREAM_SEGMENTS = (1, 4, 8)
+STREAM_SEGMENTS = (1, 8)
 
 
 def phase_streamed(card: str, corpus) -> dict:
-    """The 1M / 100M wire through ``replay_resident_streamed`` at 1, 4 and
-    8 segments and through ``upload_resident`` + ``replay_resident``, in
-    turns (plain, 1, 4, 8, 8, 4, 1, plain); every arm's states byte-equal to
+    """The 1M / 100M wire through ``replay_resident_streamed`` at
+    ``STREAM_SEGMENTS`` segments and through ``upload_resident`` +
+    ``replay_resident``, in turns (plain, 1, 8, 8, 1, plain); every arm's states byte-equal to
     the plain arm's and the closed form; each arm's wall beside its upload
     and fold seconds."""
     import torch
@@ -4026,6 +4132,603 @@ def phase_engine(card: str, work: str) -> dict:
     return asyncio.run(drive_engine(card, work))
 
 
+# -- phase 13: mixed aggregate-type replay ------------------------------------------
+
+#: phase 13's mix: each family under the model name the combined spec gives
+#: it (sorted names set the type-id bases: bank 0, cart 2, counter 5, saga 9)
+MIXED_FAMILIES = {"bank": "bank_account", "cart": "shopping_cart",
+                  "counter": "counter", "saga": "saga"}
+#: the layout the mixed kernel checks run (the four-family union, ordinal
+#: derived), as check_plane_window_shapes names layouts
+MIXED_LAYOUT = "mixed/derived"
+#: the kernel checks' sub-corpus: aggregates in all, a quarter of each family
+MIXED_CHECK_AGGREGATES = 65_536
+#: the deployment-scale cold replay: aggregates of each family (the counter
+#: with its events: phase 3's 1M / 20M, cut from the bench's 100M for the
+#: script's time limit, since every event carries the union's 17 four-byte
+#: columns through the host's mix, pack and upload)
+MIXED_SCALE = {"bank": 500_000, "cart": 1_000_000,
+               "counter": (1_000_000, 20_000_000), "saga": 1_000_000}
+#: the mixed planes: aggregates (a quarter of each family), rows, rounds
+#: (cut from 4 for the script's time limit, PERF.md §4)
+MIXED_PLANE_AGGREGATES = 262_144
+MIXED_PLANE_CAPACITY = 1 << 17
+MIXED_DENSE_AGGREGATES = 65_536
+MIXED_DENSE_CAPACITY = 32_768
+MIXED_PLANE_ROUNDS = 2
+MIXED_PLANE_TOPIC = "mixed-events"
+#: events of each log the planes' seed holds (262,144 aggregates: ~0.45M;
+#: cut from 5 (~1.04M) for the script's time limit, PERF.md §4)
+MIXED_SEED_EVENTS = 2
+#: each family's seed at MIXED_SCALE: the corpora of phases 3 and 5
+MIXED_SEEDS = {"bank": 5, "cart": 11, "counter": 3, "saga": 11}
+
+
+@functools.cache
+def mixed_replay():
+    """The port's combined spec of the four families."""
+    from surge_tpu_torch.models import bank_account, counter, shopping_cart
+    from surge_tpu_torch.replay import combine_replay_specs
+    from surge_tpu_torch.saga import model as saga
+
+    mods = {"bank_account": bank_account, "counter": counter,
+            "shopping_cart": shopping_cart, "saga": saga}
+    return combine_replay_specs({m: mods[f].make_replay_spec()
+                                 for m, f in MIXED_FAMILIES.items()})
+
+
+@functools.cache
+def mixed_case():
+    """(layout, spec, wire) of the mixed step, as kernel_cases gives each
+    family's."""
+    from surge_tpu_torch.codec.wire import WireFormat
+
+    spec = mixed_replay().spec
+    return MIXED_LAYOUT, spec, WireFormat(spec.registry,
+                                          {"sequence_number": "ordinal"})
+
+
+def family_columnar(model: str, n, seed: int):
+    """A family's cold-replay corpus (grouped by aggregate, the ordinal
+    derived) and its closed form (bank accounts have none): the counter's
+    ``synth_counter_corpus`` (``n`` is (aggregates, events)), the cart and
+    saga walks, the bank corpus."""
+    if model == "counter":
+        c = counter_corpus(*n, seed=seed)
+        return c.events, {"count": c.expected_count.astype(np.int32),
+                          "version": c.expected_version.astype(np.int32)}
+    if model == "bank":
+        return bank_corpus(n, seed=seed), None
+    return family_corpus(MIXED_FAMILIES[model], n, seed=seed)
+
+
+def mix_corpora(mixed, parts: dict, seed: int):
+    """One mixed corpus of the families' corpora ``{model: ColumnarEvents}``
+    (each grouped by aggregate): type ids offset by the combined spec's
+    bases, every union column filled (0 where a family lacks it), the
+    aggregates interleaved by a seeded permutation, events grouped by
+    aggregate. Returns ``(corpus, model [b], local [b])``: each aggregate's
+    model name and its index in that model's corpus."""
+    from surge_tpu_torch.codec.tensor import ColumnarEvents
+
+    names = sorted(parts)
+    counts = np.array([parts[m].num_aggregates for m in names])
+    offs = np.r_[0, np.cumsum(counts)]
+    b = int(offs[-1])
+    lengths = np.concatenate([np.bincount(parts[m].agg_idx, minlength=c)
+                              for m, c in zip(names, counts)])
+    starts = np.r_[0, np.cumsum(lengths)]
+    n = int(starts[-1])
+    for m in names:
+        if np.any(np.diff(parts[m].agg_idx) < 0):
+            raise ValueError(f"{m}'s corpus is not grouped by aggregate")
+    order = np.random.default_rng(seed).permutation(b)  # aggregate at each lane
+    new_len = lengths[order]
+    new_start = np.empty(b, np.int64)  # each aggregate's first row, mixed
+    new_start[order] = np.r_[0, np.cumsum(new_len)[:-1]]
+    # the derived ordinal is not a column; every other union column is 0
+    # where the event's family lacks it
+    tids = np.empty(n, np.int32)
+    cols = {f.name: np.zeros(n, f.dtype) for f in mixed.spec.registry.union_columns()
+            if f.name != "sequence_number"}
+    for i, m in enumerate(names):
+        c = parts[m]
+        agg = offs[i] + c.agg_idx
+        row = new_start[agg] + (np.arange(c.num_events) - (starts[agg] - starts[offs[i]]))
+        tids[row] = c.type_ids + mixed.bases[m]
+        for name, col in c.cols.items():
+            cols[name][row] = col
+    corpus = ColumnarEvents(
+        num_aggregates=b, agg_idx=np.repeat(np.arange(b, dtype=np.int32), new_len),
+        type_ids=tids, cols=cols, derived_cols={"sequence_number": "ordinal"})
+    model = np.repeat(np.array(names), counts)[order]
+    local = (np.arange(b) - np.repeat(offs[:-1], counts))[order]
+    return corpus, model, local
+
+
+def mixed_parts(scale: dict, seeds: dict) -> dict:
+    """Each family's corpus and closed form at ``scale`` (MIXED_SCALE's
+    shape), from its seed."""
+    return {m: family_columnar(m, scale[m], seeds[m]) for m in sorted(MIXED_FAMILIES)}
+
+
+def family_seeds(seed: int) -> dict:
+    return {m: seed + i for i, m in enumerate(sorted(MIXED_FAMILIES))}
+
+
+def quarter_scale(aggregates: int) -> dict:
+    """A quarter of ``aggregates`` a family (the counter with 20 events an
+    aggregate, as MIXED_SCALE's)."""
+    q = aggregates // 4
+    return {m: (q, 20 * q) if m == "counter" else q for m in MIXED_FAMILIES}
+
+
+def phase_mixed_kernels() -> dict:
+    """K1 (list fold, dense and flat, at the bench config; one non-resident
+    window of 512 x 8,192 lanes; the dense window) and K2 with the mixed
+    step against their plain versions, byte for byte, at the mixed
+    sub-corpus and the planes' window shapes; the head shapes timed."""
+    import torch
+
+    from surge_tpu_torch.config import Config
+    from surge_tpu_torch.replay.engine import ReplayEngine
+
+    mixed = mixed_replay()
+    layout, spec, wire = mixed_case()
+    parts = mixed_parts(quarter_scale(MIXED_CHECK_AGGREGATES), family_seeds(31))
+    corpus, _, _ = mix_corpora(mixed, {m: c for m, (c, _) in parts.items()},
+                               seed=35)
+    eng = ReplayEngine(spec, config=Config(overrides=BENCH_CONFIG))
+    resident = eng.upload_resident(eng.pack_resident(corpus))
+    lists = [check_list_case(f"{layout} {MIXED_CHECK_AGGREGATES}", eng, resident,
+                             source, seed=41 + i, timed=True)
+             for i, source in enumerate(("dense", "flat"))]
+    del eng, resident
+    nonres = [check_nonres_case(f"{layout} w{NONRES_HEAD[0]} bs{NONRES_HEAD[1]}",
+                                spec, wire, *NONRES_HEAD, seed=43, timed=True),
+              check_nonres_case(f"{layout} w8 bs24", spec, wire, 8, 24, seed=44,
+                                timed=False)]
+    windows = []
+    for i, (label, kind, lanes, live, width, t_base, admit, lengths) in \
+            enumerate(WINDOW_CASES):
+        c = window_case(kind, spec, wire, lanes, live, width, t_base, admit,
+                        lengths, seed=700 + i, capacity=PLANE_CAPACITY)
+        windows.append(dict(check_window_case(
+            f"{layout} {label}", spec, wire, c,
+            timed=label in WINDOW_HEAD.values()), layout=layout))
+        del c
+    torch.cuda.empty_cache()
+    by = {r["case"]: r["lanes_by_path"] for r in windows}
+    for label, ok in (
+            ("ragged over budget", by[f"{layout} ragged over budget"]["global"] > 0),
+            ("ragged w8 steady", by[f"{layout} ragged w8 steady"]["global"] == 0
+             and by[f"{layout} ragged w8 steady"]["staged"] > 0),
+            ("dense w512", by[f"{layout} dense w512"]["global"] == 0
+             and by[f"{layout} dense w512"]["staged"] > 0)):
+        if not ok:
+            raise AssertionError(f"{layout} {label}: the kernel took an "
+                                 f"unexpected path: {by[f'{layout} {label}']}")
+    return {"lists": lists, "nonres": nonres, "windows": windows}
+
+
+def mixed_family_check(label: str, mixed, states: dict, model, local,
+                       own: dict, expected: dict) -> None:
+    """Every lane of the mixed states equal, byte for byte, to its family's
+    own single-family states ``own[model]`` (and closed form
+    ``expected[model]``, where one exists) in each of its family's fields,
+    and 0 in every other union field."""
+    for m, spec in mixed.parts.items():
+        lanes = model == m
+        idx = local[lanes]
+        mine = set(spec.registry.state.field_names)
+        for f in mixed.spec.registry.state.fields:
+            got = np.asarray(states[f.name])[lanes]
+            if f.name in mine:
+                want = np.asarray(own[m][f.name])[idx]
+            else:
+                want = np.zeros(len(idx), f.dtype)
+            if got.tobytes() != want.tobytes():
+                bad = np.flatnonzero(got != want)[:5]
+                raise AssertionError(f"{label}: {m} lanes differ from their "
+                                     f"family's fold in {f.name!r} at {bad}")
+        if expected.get(m) is not None:
+            same_states(f"{label}: {m} against its closed form", own[m],
+                        expected[m])
+
+
+def list_fold_ms(eng, resident) -> tuple[float, dict]:
+    """The list folds' device time per replay (CUDA events, the work lists'
+    launches alone, behind a spin) and the replay's tiles, pad ratio and
+    bound; launches made here are not a main path's."""
+    plan = eng._plan_for(resident)
+    slab, ord_d = eng._fresh_slab(resident.b_pad)
+    ms = device_ms(lambda: eng._run_tiles(resident, plan, slab, ord_d), 5, 3)
+    nbytes, steps = list_work(eng, resident, plan,
+                              "dense" if eng._use_dense(resident, plan) else "flat")
+    return ms, {"tiles": len(plan.big_i0) + len(plan.small_i0),
+                "pad_ratio": plan.padded_slots / max(resident.num_events, 1),
+                "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                steps * 12 / INT32_OPS_PER_S) * 1e3,
+                "bytes": nbytes, "valid_steps": steps}
+
+
+def phase_mixed_replay(card: str) -> dict:
+    """The four families in one corpus at deployment scale (MIXED_SCALE:
+    3.5M aggregates, ~50M events) on K1's list fold, dense and flat, one
+    untimed replay each and three timed, with each lane's family's init
+    record; every lane against its family's own single-family K1 replay of
+    the same aggregates and the closed forms; the list fold's device time
+    per replay against the four single-family folds'."""
+    from surge_tpu_torch.config import Config
+    from surge_tpu_torch.models import bank_account, counter, shopping_cart
+    from surge_tpu_torch.replay.engine import ReplayEngine
+    from surge_tpu_torch.saga import model as saga
+
+    mods = {"bank": bank_account, "cart": shopping_cart, "counter": counter,
+            "saga": saga}
+    mixed = mixed_replay()
+    t0 = time.perf_counter()
+    parts = mixed_parts(MIXED_SCALE, MIXED_SEEDS)
+    walk_s = time.perf_counter() - t0
+    corpus, model, local = mix_corpora(mixed, {m: c for m, (c, _) in parts.items()},
+                                       seed=57)
+    mix_s = time.perf_counter() - t0 - walk_s
+    init = mixed.init_carry(model)
+    out: dict = {"card": card, "aggregates": corpus.num_aggregates,
+                 "events": corpus.num_events, "walk_s": walk_s, "mix_s": mix_s,
+                 "arms": {}, "launches": {}, "families": {}}
+    states, resident = {}, None
+    for arm in ("dense", "flat"):
+        r = run_arm(mixed.spec, corpus, arm, replays=3, resident=resident,
+                    init_carry=init, device_fold=True)
+        resident = r["resident"]
+        states[arm] = r["states"]
+        out["launches"][f"cold_replay_mixed_{arm}"] = r["row"]["launches"]
+        out["arms"][arm] = r["row"]
+        del r
+    same_states("mixed flat against dense", states["flat"], states["dense"])
+    # what `auto` picks under the default dense-cap-mb (2,048): the dense
+    # tiles' bytes decide it
+    auto = ReplayEngine(mixed.spec, config=Config(overrides=BENCH_CONFIG))
+    plan = auto._plan_for(resident)
+    out["auto"] = {"dense": auto._use_dense(resident, plan),
+                   "dense_bytes": auto._dense_bytes(resident, plan),
+                   "dense_cap_mb": auto._dense_cap_mb}
+    del resident, init, auto
+    own, expected = {}, {}
+    for m, (c, exp) in parts.items():
+        r = run_arm(mods[m].make_replay_spec(), c, "auto", replays=3,
+                    device_fold=True)
+        own[m], expected[m] = r["states"], exp
+        out["families"][m] = dict(r["row"], events=c.num_events,
+                                  aggregates=c.num_aggregates)
+        del r
+    mixed_family_check("mixed cold replay", mixed, states["dense"], model, local,
+                       own, expected)
+    fam_ms = sum(f["fold_device_ms"] for f in out["families"].values())
+    out.update({
+        "steady_events_per_sec": {arm: corpus.num_events / min(a["fold_s"])
+                                  for arm, a in out["arms"].items()},
+        "family_steady_events_per_sec": {
+            m: f["events"] / min(f["fold_s"]) for m, f in out["families"].items()},
+        "list_fold_ms": {arm: a["fold_device_ms"] for arm, a in out["arms"].items()},
+        "families_list_fold_ms_sum": fam_ms,
+        "list_fold_ratio_to_families": {arm: a["fold_device_ms"] / fam_ms
+                                        for arm, a in out["arms"].items()}})
+    log("phase13-replay " + json.dumps(out))
+    return out
+
+
+def mixed_record_dtype(mixed) -> np.dtype:
+    """One mixed event on the log: the combined type id (u8), every union
+    column but the derived ordinal (4 bytes each, little-endian) and the
+    sequence number (u32)."""
+    cols = [(f.name, "<f4" if np.dtype(f.dtype) == np.float32 else "<i4")
+            for f in mixed.spec.registry.union_columns()
+            if f.name != "sequence_number"]
+    return np.dtype([("type", "u1"), *cols, ("seq", "<u4")])
+
+
+def mixed_deserializer(mixed):
+    """A batch of mixed event records -> the port's events of each family."""
+    import dataclasses
+
+    from surge_tpu_torch.codec.tensor import _construct
+
+    dt = mixed_record_dtype(mixed)
+    kinds = {}
+    for s in mixed.spec.registry.event_schemas:
+        names = s.field_names
+        # the fields the registry leaves out (an aggregate id), as the codec
+        # fills them
+        probe = _construct(s.cls, {n: 0 for n in names})
+        extra = {f.name: getattr(probe, f.name) for f in dataclasses.fields(s.cls)
+                 if f.name not in names}
+        kinds[s.type_id] = (s.cls, names, extra)
+
+    def events(raws):
+        recs = np.frombuffer(b"".join(raws), dtype=dt)
+        cols = {name: recs[name].tolist() for name in dt.names}
+        cols["sequence_number"] = cols.pop("seq")
+        out = []
+        for j, t in enumerate(cols["type"]):
+            cls, names, extra = kinds[t]
+            out.append(cls(**extra, **{n: cols[n][j] for n in names}))
+        return out
+
+    return events
+
+
+class MixedLog:
+    """The port's InMemoryLog of a mixed corpus's event records: each
+    aggregate on partition ``index % PLANE_PARTITIONS``; ``cursor`` counts the
+    events of each log appended so far."""
+
+    def __init__(self, mixed, corpus):
+        from surge_tpu_torch.log import InMemoryLog, TopicSpec
+
+        self.log = InMemoryLog()
+        self.log.create_topic(TopicSpec(MIXED_PLANE_TOPIC, PLANE_PARTITIONS))
+        self.ids = [f"m{i}" for i in range(corpus.num_aggregates)]
+        self.lengths = np.bincount(corpus.agg_idx, minlength=corpus.num_aggregates)
+        self.starts = np.r_[0, np.cumsum(self.lengths)]
+        self.cursor = np.zeros(corpus.num_aggregates, np.int64)
+        dt = mixed_record_dtype(mixed)
+        recs = np.zeros(corpus.num_events, dtype=dt)
+        recs["type"] = corpus.type_ids
+        for name in dt.names[1:-1]:
+            recs[name] = corpus.cols[name]
+        recs["seq"] = np.arange(corpus.num_events) - self.starts[corpus.agg_idx] + 1
+        self.buf, self.w = recs.tobytes(), dt.itemsize
+        self._producer = self.log.transactional_producer("chip-smoke")
+
+    def append(self, counts: np.ndarray, verbatim: bool = False) -> int:
+        """Append the next ``counts[a]`` events of each log ``a``, in order,
+        as one transaction (``verbatim``: the records a transaction would
+        leave, a partition at a time)."""
+        from surge_tpu_torch.log import LogRecord
+
+        aggs = np.repeat(np.arange(len(counts)), counts)
+        events = np.repeat(self.starts[:-1] + self.cursor, counts) + (
+            np.arange(len(aggs)) - np.repeat(np.r_[0, np.cumsum(counts)[:-1]], counts))
+        self.cursor += counts
+        w, buf, ids = self.w, self.buf, self.ids
+        if verbatim:
+            now = time.time()
+            ends = [self.log.end_offset(MIXED_PLANE_TOPIC, p)
+                    for p in range(PLANE_PARTITIONS)]
+            parts = [[] for _ in range(PLANE_PARTITIONS)]
+            for j, a in zip(events.tolist(), aggs.tolist()):
+                p = a % PLANE_PARTITIONS
+                parts[p].append(LogRecord(MIXED_PLANE_TOPIC, ids[a],
+                                          buf[j * w:(j + 1) * w], p, {},
+                                          ends[p] + len(parts[p]), now))
+            for recs in parts:
+                self.log.append_verbatim(recs)
+            return len(aggs)
+        prod = self._producer
+        prod.begin()
+        for j, a in zip(events.tolist(), aggs.tolist()):
+            prod.send(LogRecord(topic=MIXED_PLANE_TOPIC, key=ids[a],
+                                value=buf[j * w:(j + 1) * w],
+                                partition=a % PLANE_PARTITIONS))
+        prod.commit()
+        return len(aggs)
+
+    def round_counts(self, rng) -> np.ndarray:
+        """One round's events per log: per partition, random logs with
+        events left take their next 1-8 (a 2% tail their next 17-64) while
+        the partition's events stay within SAGA_ROUND_BUDGET (the poll's and
+        the staleness bound's 4,096)."""
+        counts = np.zeros(len(self.ids), np.int64)
+        left = self.lengths - self.cursor
+        for p in range(PLANE_PARTITIONS):
+            mine = np.flatnonzero((left > 0) & (np.arange(len(left)) % PLANE_PARTITIONS == p))
+            mine = rng.permutation(mine)[:2000]
+            want = rng.integers(1, 9, size=len(mine))
+            tail = rng.random(len(mine)) < 0.02
+            want[tail] = rng.integers(17, 65, size=int(tail.sum()))
+            take = np.minimum(want, left[mine])
+            keep = np.cumsum(take) <= SAGA_ROUND_BUDGET
+            counts[mine[keep]] = take[keep]
+        return counts
+
+
+async def drive_mixed_plane(card: str, aggregates: int, capacity: int,
+                            dispatch: str, seed: int) -> dict:
+    """A mixed topic (a quarter of each family) through a plane with the
+    combined spec: a seed of each log's first MIXED_SEED_EVENTS events
+    through K1, MIXED_PLANE_ROUNDS refresh rounds (spilled aggregates
+    re-admit), each window one window-kernel launch; then every aggregate
+    read back with read_many against its family's own fold of the events
+    appended, byte for byte. Fails on any signal or fallback."""
+    import torch
+
+    from surge_tpu_torch.config import Config
+    from surge_tpu_torch.models import bank_account, counter, shopping_cart
+    from surge_tpu_torch.replay import fold_kernels
+    from surge_tpu_torch.replay.engine import ReplayEngine
+    from surge_tpu_torch.replay.resident_state import ResidentStatePlane
+    from surge_tpu_torch.saga import model as saga
+
+    mixed = mixed_replay()
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    parts = mixed_parts(quarter_scale(aggregates), family_seeds(seed))
+    corpus, model, local = mix_corpora(mixed, {m: c for m, (c, _) in parts.items()},
+                                       seed=seed + 1)
+    mlog = MixedLog(mixed, corpus)
+    mlog.append(np.minimum(mlog.lengths, MIXED_SEED_EVENTS), verbatim=True)
+    seed_events = int(mlog.cursor.sum())
+    log_s = time.perf_counter() - t0
+    events = mixed_deserializer(mixed)
+    signals: list = []
+    ledger = RoundLedger()
+    plane = ResidentStatePlane(
+        mlog.log, MIXED_PLANE_TOPIC, mixed.spec,
+        config=Config(overrides={
+            "surge.replay.resident.capacity": capacity,
+            "surge.replay.resident.refresh-dispatch": dispatch}),
+        deserialize_event=lambda raw: events([raw])[0], deserialize_events=events,
+        serialize_state=lambda agg, st: repr(st).encode(),
+        derived_cols={"sequence_number": "ordinal"},
+        on_signal=lambda name, level: signals.append((name, level)),
+        ledger=ledger)
+    if plane.engine.tile_backend != "pallas":
+        raise AssertionError("the mixed plane's backend did not resolve to the "
+                             "kernels")
+    reset_launches()
+    t0 = time.perf_counter()
+    await plane.start()
+    start_s = time.perf_counter() - t0
+    seed_launches = dict(fold_kernels.LAUNCHES)
+    reset_launches()
+    key = "ragged" if dispatch == "bucketed" else "dense"
+    shapes: list = []
+    real = getattr(fold_kernels, f"{key}_window")
+
+    def seen_window(slab, ords, table, words, sides, **kw):
+        shapes.append((table.shape[1], kw["width"] if key == "ragged"
+                       else words.shape[0], words.shape[0] if key == "ragged" else 0))
+        return real(slab, ords, table, words, sides, **kw)
+
+    setattr(fold_kernels, f"{key}_window", seen_window)
+    per_round, walls = [], []
+    try:
+        for r in range(MIXED_PLANE_ROUNDS):
+            n0 = len(ledger.rounds)
+            mlog.append(mlog.round_counts(rng))
+            w0 = time.perf_counter()
+            await wait_lag_zero(plane, 300.0)
+            walls.append(time.perf_counter() - w0)
+            for kw in ledger.rounds[n0:]:
+                per_round.append({"round": r, "events": kw["events"],
+                                  "lanes": kw["lanes"], "windows": kw["windows"],
+                                  "evictions": kw["evictions"],
+                                  "round_wall_ms": walls[-1] * 1e3})
+    finally:
+        setattr(fold_kernels, f"{key}_window", real)
+    refresh_launches = dict(fold_kernels.LAUNCHES)
+    # every aggregate with events on the log read back, against its
+    # family's fold of exactly the events appended (an aggregate with none
+    # is not served, and folds to its family's init record)
+    logged = np.flatnonzero(mlog.cursor > 0)
+    ids = [mlog.ids[i] for i in logged.tolist()]
+    t0 = time.perf_counter()
+    got = {}
+    for lo in range(0, len(ids), 65536):
+        got.update(await plane.read_many(ids[lo:lo + 65536]))
+    read_s = time.perf_counter() - t0
+    await plane.stop()
+    if sorted(got) != sorted(ids):
+        raise AssertionError(f"read_many served {len(got)} of the {len(ids)} "
+                             f"aggregates on the log")
+    fields = mixed.spec.registry.state.fields
+    rows = {f.name: np.zeros(len(mlog.ids), f.dtype) for f in fields}
+    for f in fields:
+        rows[f.name][logged] = np.fromiter((getattr(got[a], f.name) for a in ids),
+                                           dtype=f.dtype, count=len(ids))
+    lengths = np.bincount(corpus.agg_idx, minlength=corpus.num_aggregates)
+    pos = np.arange(corpus.num_events) - np.repeat(mlog.starts[:-1], lengths)
+    appended = pos < mlog.cursor[corpus.agg_idx]
+    mods = {"bank": bank_account, "cart": shopping_cart, "counter": counter,
+            "saga": saga}
+    own = {}
+    for m, (c, _) in parts.items():
+        n_local = c.num_aggregates
+        lens_local = np.zeros(n_local, np.int64)
+        mine = model == m
+        lens_local[local[mine]] = mlog.cursor[mine]
+        c_starts = np.r_[0, np.cumsum(np.bincount(c.agg_idx, minlength=n_local))]
+        keep = (np.arange(c.num_events) - c_starts[c.agg_idx]) < lens_local[c.agg_idx]
+        sub = type(c)(num_aggregates=n_local, agg_idx=c.agg_idx[keep],
+                      type_ids=c.type_ids[keep],
+                      cols={k: v[keep] for k, v in c.cols.items()},
+                      derived_cols=dict(c.derived_cols))
+        eng = ReplayEngine(mods[m].make_replay_spec(),
+                           config=Config(overrides=BENCH_CONFIG))
+        own[m] = eng.replay_resident(eng.prepare_resident(sub)).states
+    mixed_family_check(f"mixed plane ({dispatch})", mixed, rows, model, local,
+                       own, {})
+    windows = sum(x["windows"] for x in per_round)
+    if signals:
+        raise AssertionError(f"the mixed plane signalled {signals}")
+    if plane.stats["fallbacks"]:
+        raise AssertionError(f"{plane.stats['fallbacks']} mixed reads fell back: "
+                             f"{plane.fallback_causes}")
+    if plane.stats["evictions"] <= 0:
+        raise AssertionError("no mixed round evicted")
+    if seed_launches["tile_fold_list"] <= 0 or (seed_launches["dense_window"]
+                                                or seed_launches["ragged_window"]):
+        raise AssertionError(f"the mixed seed's launches: {seed_launches}")
+    if (refresh_launches[f"{key}_window"] != windows or windows <= 0
+            or sum(refresh_launches.values()) != windows
+            or len(shapes) != windows):
+        raise AssertionError(
+            f"{windows} mixed refresh windows made {refresh_launches} launches "
+            f"({len(shapes)} window calls), not one {key}-window launch each")
+    ev = sum(x["events"] for x in per_round)
+    row = {"card": card, "dispatch": dispatch, "aggregates": aggregates,
+           "capacity": capacity, "log_build_s": log_s,
+           "seed_events": seed_events, "appended_events": int(appended.sum()),
+           "start_s": start_s, "seed": plane.seed_timing,
+           "seed_launches": seed_launches, "refresh_launches": refresh_launches,
+           "refresh_windows": windows, "rounds": per_round,
+           "refresh_events_per_s": ev / sum(walls),
+           "window_shapes": {key: [[*s, shapes.count(s)] for s in sorted(set(shapes))]},
+           "read_back_rows_per_s": len(got) / read_s,
+           "evictions": plane.stats["evictions"],
+           "fallbacks": plane.stats["fallbacks"],
+           "device_mem_peak_bytes": torch.cuda.max_memory_allocated()}
+    log(f"phase13-plane-{dispatch} " + json.dumps(row))
+    return row
+
+
+def phase_mixed(card: str, checked: set) -> dict:
+    """Phase 13: the mixed step's kernel checks, the deployment-scale mixed
+    cold replay, the two mixed planes, then each window kernel against its
+    plain version at every window shape the mixed planes gave it that no
+    earlier check held (lanes_by_path from the kernel's report)."""
+    phase_s: dict = {}
+    t0 = time.perf_counter()
+    kernels = phase_mixed_kernels()
+    phase_s["kernels"] = time.perf_counter() - t0
+    for r in kernels["windows"]:
+        checked.add((r["layout"], r["kind"], r["lanes"], r["width"],
+                     r["rows"] if r["kind"] == "ragged" else 0))
+    t0 = time.perf_counter()
+    replay = phase_mixed_replay(card)
+    phase_s["replay"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    planes = {
+        "bucketed": asyncio.run(drive_mixed_plane(
+            card, MIXED_PLANE_AGGREGATES, MIXED_PLANE_CAPACITY, "bucketed", 61)),
+        "dense": asyncio.run(drive_mixed_plane(
+            card, MIXED_DENSE_AGGREGATES, MIXED_DENSE_CAPACITY, "dense", 67))}
+    phase_s["planes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shape_rows = check_plane_window_shapes(
+        {"ragged": planes["bucketed"]["window_shapes"]["ragged"],
+         "dense": planes["dense"]["window_shapes"]["dense"]}, checked, MIXED_LAYOUT)
+    phase_s["plane_windows"] = time.perf_counter() - t0
+    for p in planes.values():
+        p["lanes_by_path"] = {r["case"]: r["lanes_by_path"] for r in shape_rows
+                              if r["kind"] == next(iter(p["window_shapes"]))}
+    out = {"kernels": kernels, "replay": replay, "planes": planes,
+           "plane_window_rows": shape_rows, "phase_s": phase_s}
+    log("phase13 " + json.dumps({
+        "steady_events_per_sec": replay["steady_events_per_sec"],
+        "family_steady_events_per_sec": replay["family_steady_events_per_sec"],
+        "list_fold_ms": replay["list_fold_ms"],
+        "families_list_fold_ms_sum": replay["families_list_fold_ms_sum"],
+        "plane_refresh_events_per_s": {k: p["refresh_events_per_s"]
+                                       for k, p in planes.items()},
+        "plane_fallbacks": {k: p["fallbacks"] for k, p in planes.items()},
+        "plane_lanes_by_path": {k: p["lanes_by_path"] for k, p in planes.items()},
+        "phase_s": phase_s}))
+    return out
+
+
 def scan_reduce_line(query: dict, views: dict | None, engine: dict | None) -> dict:
     """The scan-reduce kernel's entry of the ``kernels`` line: its time at
     the head case (the first chunk's all-ops scan), every case's time, bound,
@@ -4087,7 +4790,7 @@ def total_launches(paths: dict) -> int | None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--baseline", default=None,
                     help="a tree of an earlier commit (unpacked git archive): "
@@ -4219,6 +4922,11 @@ def run_phases(phases: set, card: str, work: str, baseline: str | None = None) -
         plane_rows += check_plane_window_shapes(engine["window_shapes"], checked,
                                                 engine["window_layout"])
         lap("12-windows")
+    mixed = None
+    if 13 in phases:
+        mixed = phase_mixed(card, checked)
+        plane_rows += mixed["kernels"]["windows"] + mixed["plane_window_rows"]
+        lap("13")
     if windows is not None:
         windows["rows"].extend(plane_rows)
     log("phase_s " + json.dumps(phase_s))
@@ -4270,7 +4978,18 @@ def run_phases(phases: set, card: str, work: str, baseline: str | None = None) -
             # this slice's path: the engine (phase 12), stage by stage
             **{f"engine_{s}": (engine["launches"][s][name] if engine else None)
                for s in ENGINE_STAGES},
+            # this slice's paths: the mixed cold replay and the mixed planes
+            # (phase 13)
+            **{f"cold_replay_mixed_{a}": (
+                mixed["replay"]["launches"][f"cold_replay_mixed_{a}"][name]
+                if mixed else None) for a in ("dense", "flat")},
+            **{f"mixed_plane_{k}_{st}": (
+                mixed["planes"][k][f"{st}_launches"][name] if mixed else None)
+               for k in ("bucketed", "dense") for st in ("seed", "refresh")},
         } for name in fold_kernels.LAUNCHES}
+        # each family's layout at the head shapes; the mixed step's too when
+        # phase 13 ran
+        layouts = dict(MODEL_LAYOUTS, **({"mixed": MIXED_LAYOUT} if mixed else {}))
         kernels = []
         for kind, replaces in (("dense", "surge_tpu/replay/pallas_fold.py:86"),
                                ("ragged", "surge_tpu/replay/pallas_fold.py:170")):
@@ -4280,7 +4999,7 @@ def run_phases(phases: set, card: str, work: str, baseline: str | None = None) -
             rows = [r for r in windows["rows"] if r["kind"] == kind]
             head = {model: next(r for r in rows
                                 if r["case"] == f"{layout} {WINDOW_HEAD[kind]}")
-                    for model, layout in MODEL_LAYOUTS.items()}
+                    for model, layout in layouts.items()}
             kernels.append({
                 "name": f"{kind}_window",
                 "route": "cuda",
@@ -4306,14 +5025,21 @@ def run_phases(phases: set, card: str, work: str, baseline: str | None = None) -
         # the list fold's line: one cold replay's work lists on the bench
         # plan (counter, derived ordinal, dense), both launches together;
         # each family's at its phase-5 corpus
+        # (the mixed step: its 65,536-aggregate check corpus, dense)
         lists = {"counter": klist["rows"][0], **{
             m: next(r for r in klist["rows"] if r["case"] == f"{m}/derived 1M"
                     and r["source"] == "dense")
             for m in ("shopping_cart", "saga")}}
+        nonres_rows = nonres["rows"]
+        if mixed:
+            lists["mixed"] = next(r for r in mixed["kernels"]["lists"]
+                                  if r["source"] == "dense")
+            klist["rows"] += mixed["kernels"]["lists"]
+            nonres_rows = nonres_rows + mixed["kernels"]["nonres"]
         head = lists["counter"]
-        head_nonres = {m: next(r for r in nonres["rows"] if r["case"] ==
+        head_nonres = {m: next(r for r in nonres_rows if r["case"] ==
                                f"{layout} w{NONRES_HEAD[0]} bs{NONRES_HEAD[1]}")
-                       for m, layout in MODEL_LAYOUTS.items()}
+                       for m, layout in layouts.items()}
         kernels.insert(1, {
             "name": "tile_fold_list",
             "route": "cuda",
@@ -4321,7 +5047,7 @@ def run_phases(phases: set, card: str, work: str, baseline: str | None = None) -
             "replaces": "surge_tpu/replay/pallas_fold.py:86",
             "launches": total_launches(paths["tile_fold_list"]),
             "launches_by_path": paths["tile_fold_list"],
-            "max_abs_err": max(r["max_abs_err"] for r in klist["rows"] + nonres["rows"]),
+            "max_abs_err": max(r["max_abs_err"] for r in klist["rows"] + nonres_rows),
             "ms": head["ms"], "ms_per_launch": head["ms_per_launch"],
             "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -4332,16 +5058,29 @@ def run_phases(phases: set, card: str, work: str, baseline: str | None = None) -
             "plain_ms_by_model": {m: r["plain_ms"] for m, r in lists.items()},
             # the non-resident windows (one launch a window, a one-tile
             # dense list): each family at NONRES_HEAD, every timed shape
-            "window_max_abs_err": max(r["max_abs_err"] for r in nonres["rows"]),
+            "window_max_abs_err": max(r["max_abs_err"] for r in nonres_rows),
             "window_ms_by_model": {m: head_nonres[m]["ms"] for m in head_nonres},
             "window_bound_ms_by_model": {m: head_nonres[m]["bound_ms"]
                                          for m in head_nonres},
             "window_plain_ms_by_model": {m: head_nonres[m]["plain_ms"]
                                          for m in head_nonres},
-            "window_ms_by_shape": {r["case"]: r["ms"] for r in nonres["rows"]
+            "window_ms_by_shape": {r["case"]: r["ms"] for r in nonres_rows
                                    if "ms" in r},
             "window_bound_ms_by_shape": {r["case"]: r["bound_ms"]
-                                         for r in nonres["rows"] if "ms" in r},
+                                         for r in nonres_rows if "ms" in r},
+            # the mixed cold replay at deployment scale (phase 13): the list
+            # folds' device time per replay, dense and flat, beside the sum
+            # of the four families' own folds of the same aggregates
+            "mixed_replay": ({
+                "aggregates": mixed["replay"]["aggregates"],
+                "events": mixed["replay"]["events"],
+                "ms": mixed["replay"]["list_fold_ms"],
+                "bound_ms": {a: r["bound_ms"]
+                             for a, r in mixed["replay"]["arms"].items()},
+                "families_ms": {m: f["fold_device_ms"] for m, f in
+                                mixed["replay"]["families"].items()},
+                "families_ms_sum": mixed["replay"]["families_list_fold_ms_sum"],
+            } if mixed else None),
         })
         if query is not None:
             kernels.append(scan_reduce_line(query, views, engine))

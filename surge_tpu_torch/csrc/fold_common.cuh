@@ -15,6 +15,15 @@
 // store_slot do the admission select, the slot-indexed carry load and store,
 // and the ordinal update of the reference's window program.
 //
+// A combined spec (surge_tpu_torch/replay/mixed.py) folds through MixedStep,
+// C step id 4: its columns and state fields are those of the four-family
+// union, sorted by name (fold_kernels.MIXED_COLS, MIXED_STATE), each slot
+// absent where the spec's own union lacks it. The event's type id picks the
+// part by its range (DecodeArgs.part_base, part_types, launch parameters);
+// the part's own step is applied to its columns and fields, gathered from the
+// union slots and written back through maps fixed at compile time (MixedPart),
+// so no register array is indexed at run time.
+//
 // DecodeArgs, StateArgs and SlabArgs are mirrored by ctypes.Structures in
 // surge_tpu_torch/replay/fold_kernels.py, whose loader checks their sizes
 // (struct_size): keep both in step. They live in a named namespace so the
@@ -24,15 +33,19 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
 namespace surge_fold {
 
 constexpr int kThreads = 256;
-// union columns and state fields a model may have (saga: 9 and 12)
-constexpr int kMaxCols = 12;
-constexpr int kMaxState = 12;
+// union columns and state fields a step may have: MixedStep's, the union of
+// the four families (the saga alone has 9 and 12)
+constexpr int kMaxCols = 18;
+constexpr int kMaxState = 20;
+// the families MixedStep carries, in the order of the step ids 0-3
+constexpr int kParts = 4;
 // lanes per block of the two refresh-window kernels: 64 timed fastest of 64,
 // 128 and 256 at the plane's windows on an H100 (PERF.md, Findings: the
 // block-size sweep)
@@ -40,14 +53,18 @@ constexpr int kWindowLanes = 64;
 // rows a lane loads from device memory ahead of the dependent steps
 constexpr int kPrefetch = 8;
 
-// where a union column's value comes from
-enum ColKind : int32_t { kPacked = 0, kSide = 1, kOrdinal = 2 };
+// where a union column's value comes from (kAbsentCol: a MixedStep slot the
+// spec's union lacks; it decodes to 0)
+enum ColKind : int32_t { kPacked = 0, kSide = 1, kOrdinal = 2, kAbsentCol = 3 };
 // how a state column is stored: 4-byte word (i32 or f32 bits) or 1-byte bool
-enum StateKind : int32_t { kWord = 0, kByte = 1 };
+// (kAbsentField: a MixedStep slot the spec lacks; loaded as 0, never stored)
+enum StateKind : int32_t { kWord = 0, kByte = 1, kAbsentField = 2 };
 
 // the wire layout, one entry per union column in the model's column order.
 // side[c] is a 4-byte column; each kernel says how it is indexed (K1: the
-// time-major tile [width, bs]; K2: the flat event rows [rows]).
+// time-major tile [width, bs]; K2: the flat event rows [rows]). MixedStep
+// reads part p's events at type ids [part_base[p], part_base[p] +
+// part_types[p]) (0 types: the part is not in the spec).
 struct DecodeArgs {
   int32_t type_bits;
   int32_t num_types;
@@ -56,6 +73,8 @@ struct DecodeArgs {
   int32_t shift[kMaxCols];
   uint32_t mask[kMaxCols];
   const uint32_t* side[kMaxCols];
+  int32_t part_base[kParts];
+  int32_t part_types[kParts];
 };
 
 struct StateArgs {
@@ -181,15 +200,143 @@ struct SagaStep {
   }
 };
 
+// The combined spec's step: the union of the four families. Column slots
+// (sorted names): 0 attempts, 1 balance, 2-5 c0-c3, 6 decrement_by, 7 def_id,
+// 8 increment_by, 9 item_code, 10 new_balance, 11 num_steps, 12 owner_code,
+// 13 quantity, 14 security_code_code, 15 sequence_number, 16 step,
+// 17 unit_price_cents. State slots: 0 attempts, 1 balance, 2-5 c0-c3,
+// 6 checked_out, 7 committed, 8 compensated, 9 count, 10 created, 11 def_id,
+// 12 item_count, 13 num_steps, 14 owner_code, 15 security_code_code,
+// 16 status, 17 step, 18 total_cents, 19 version.
+struct MixedStep {
+  static constexpr int kCols = kMaxCols;
+  static constexpr int kState = kMaxState;
+};
+
+template <class Step>
+constexpr bool kIsMixed = false;
+template <>
+constexpr bool kIsMixed<MixedStep> = true;
+
+// part p of MixedStep: its step functor and the union slot of each of its
+// columns and state fields (in the functor's order)
+template <int P>
+struct MixedPart;
+template <>
+struct MixedPart<0> {
+  using Step = CounterStep;
+  __host__ __device__ static constexpr int col(int c) {
+    constexpr int m[] = {6, 8, 15};
+    return m[c];
+  }
+  __host__ __device__ static constexpr int field(int i) {
+    constexpr int m[] = {9, 19};
+    return m[i];
+  }
+};
+template <>
+struct MixedPart<1> {
+  using Step = BankAccountStep;
+  __host__ __device__ static constexpr int col(int c) {
+    constexpr int m[] = {1, 10, 12, 14};
+    return m[c];
+  }
+  __host__ __device__ static constexpr int field(int i) {
+    constexpr int m[] = {10, 14, 15, 1};
+    return m[i];
+  }
+};
+template <>
+struct MixedPart<2> {
+  using Step = ShoppingCartStep;
+  __host__ __device__ static constexpr int col(int c) {
+    constexpr int m[] = {9, 13, 15, 17};
+    return m[c];
+  }
+  __host__ __device__ static constexpr int field(int i) {
+    constexpr int m[] = {12, 18, 6, 19};
+    return m[i];
+  }
+};
+template <>
+struct MixedPart<3> {
+  using Step = SagaStep;
+  __host__ __device__ static constexpr int col(int c) {
+    constexpr int m[] = {0, 2, 3, 4, 5, 7, 11, 15, 16};
+    return m[c];
+  }
+  __host__ __device__ static constexpr int field(int i) {
+    constexpr int m[] = {11, 13, 16, 17, 7, 8, 0, 2, 3, 4, 5, 19};
+    return m[i];
+  }
+};
+
+// f(std::integral_constant<int, I>) for I in [0, N): each index a
+// compile-time constant
+template <int I, int N, class F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (I < N) {
+    f(std::integral_constant<int, I>{});
+    static_for<I + 1, N>(f);
+  }
+}
+
+// Part P's step on the union carry, when the event's type id lies in its
+// range: its fields and columns gathered from their union slots, its step
+// applied with the local type id, its fields written back
+template <int P>
+__device__ __forceinline__ void apply_part(const DecodeArgs& dec,
+                                           uint32_t (&st)[kMaxState], int tid,
+                                           const uint32_t (&ev)[kMaxCols]) {
+  using Part = MixedPart<P>;
+  using Step = typename Part::Step;
+  const uint32_t local = static_cast<uint32_t>(tid - dec.part_base[P]);
+  if (local >= static_cast<uint32_t>(dec.part_types[P])) return;
+  uint32_t s[Step::kState];
+  uint32_t e[Step::kCols];
+  static_for<0, Step::kState>([&](auto i) {
+    constexpr int u = Part::field(decltype(i)::value);
+    s[decltype(i)::value] = st[u];
+  });
+  static_for<0, Step::kCols>([&](auto c) {
+    constexpr int u = Part::col(decltype(c)::value);
+    e[decltype(c)::value] = ev[u];
+  });
+  Step::apply(s, static_cast<int>(local), e);
+  static_for<0, Step::kState>([&](auto i) {
+    constexpr int u = Part::field(decltype(i)::value);
+    st[u] = s[decltype(i)::value];
+  });
+}
+
+// a state slot's value: its 4-byte word, its bool byte as 0 or 1, or 0 for
+// a MixedStep slot the spec lacks
+template <class Step>
+__device__ __forceinline__ uint32_t load_field(int32_t kind, const void* col,
+                                               size_t i) {
+  if (kIsMixed<Step> && kind == kAbsentField) return 0u;
+  return kind == kByte
+             ? static_cast<uint32_t>(static_cast<const uint8_t*>(col)[i] != 0)
+             : static_cast<const uint32_t*>(col)[i];
+}
+
+template <class Step>
+__device__ __forceinline__ void store_field(int32_t kind, void* col, size_t i,
+                                            uint32_t v) {
+  if (kIsMixed<Step> && kind == kAbsentField) return;
+  if (kind == kByte) {
+    static_cast<uint8_t*>(col)[i] = v != 0u ? 1 : 0;
+  } else {
+    static_cast<uint32_t*>(col)[i] = v;
+  }
+}
+
 template <class Step>
 __device__ __forceinline__ void load_carry(const StateArgs& sa, int lane,
                                            uint32_t (&st)[Step::kState]) {
 #pragma unroll
   for (int i = 0; i < Step::kState; ++i) {
-    st[i] = sa.kind[i] == kByte
-                ? static_cast<uint32_t>(
-                      static_cast<const uint8_t*>(sa.in[i])[lane] != 0)
-                : static_cast<const uint32_t*>(sa.in[i])[lane];
+    st[i] = load_field<Step>(sa.kind[i], sa.in[i], lane);
   }
 }
 
@@ -198,11 +345,7 @@ __device__ __forceinline__ void store_carry(const StateArgs& sa, int lane,
                                             const uint32_t (&st)[Step::kState]) {
 #pragma unroll
   for (int i = 0; i < Step::kState; ++i) {
-    if (sa.kind[i] == kByte) {
-      static_cast<uint8_t*>(sa.out[i])[lane] = st[i] != 0u ? 1 : 0;
-    } else {
-      static_cast<uint32_t*>(sa.out[i])[lane] = st[i];
-    }
+    store_field<Step>(sa.kind[i], sa.out[i], lane, st[i]);
   }
 }
 
@@ -219,10 +362,13 @@ enum LaneRow : int32_t {
   kRowAdmitVal = 5,  // the admitted values, one row per state field
 };
 
-// the resident slab and one refresh window's lane table
+// the resident slab and one refresh window's lane table. The table's
+// admission rows follow the spec's state order; admit_row[i] is the row of
+// state slot i (MixedStep's slots are the union's, in another order)
 struct SlabArgs {
   int32_t n_state;
   int32_t kind[kMaxState];
+  int32_t admit_row[kMaxState];
   void* col[kMaxState];   // slab columns [capacity + 1], read and written by slot
   int32_t* ords;          // [capacity + 1] per-slot ordinal bases
   const int32_t* table;   // [kRowAdmitVal + n_state (admit) or kRowAdmit, lanes]
@@ -277,17 +423,21 @@ __device__ __forceinline__ uint32_t load_slot(const SlabArgs& sa, int lane,
   if (l.admitted) {
 #pragma unroll
     for (int i = 0; i < Step::kState; ++i) {
-      const uint32_t v = static_cast<uint32_t>(table_at(sa, kRowAdmitVal + i, lane));
+      if constexpr (kIsMixed<Step>) {
+        if (sa.kind[i] == kAbsentField) {
+          st[i] = 0u;
+          continue;
+        }
+      }
+      const int row = kIsMixed<Step> ? sa.admit_row[i] : kRowAdmitVal + i;
+      const uint32_t v = static_cast<uint32_t>(table_at(sa, row, lane));
       st[i] = sa.kind[i] == kByte ? static_cast<uint32_t>(v != 0u) : v;
     }
     return static_cast<uint32_t>(table_at(sa, kRowAdmitOrd, lane));
   }
 #pragma unroll
   for (int i = 0; i < Step::kState; ++i) {
-    st[i] = sa.kind[i] == kByte
-                ? static_cast<uint32_t>(
-                      static_cast<const uint8_t*>(sa.col[i])[l.slot] != 0)
-                : static_cast<const uint32_t*>(sa.col[i])[l.slot];
+    st[i] = load_field<Step>(sa.kind[i], sa.col[i], l.slot);
   }
   return static_cast<uint32_t>(sa.ords[l.slot]);
 }
@@ -300,11 +450,7 @@ __device__ __forceinline__ void store_slot(const SlabArgs& sa, const Lane& l,
                                            uint32_t base) {
 #pragma unroll
   for (int i = 0; i < Step::kState; ++i) {
-    if (sa.kind[i] == kByte) {
-      static_cast<uint8_t*>(sa.col[i])[l.slot] = st[i] != 0u ? 1 : 0;
-    } else {
-      static_cast<uint32_t*>(sa.col[i])[l.slot] = st[i];
-    }
+    store_field<Step>(sa.kind[i], sa.col[i], l.slot, st[i]);
   }
   sa.ords[l.slot] = static_cast<int32_t>(base + static_cast<uint32_t>(l.count));
 }
@@ -335,11 +481,21 @@ __device__ __forceinline__ void fold_word(const DecodeArgs& dec,
 #pragma unroll
   for (int c = 0; c < Step::kCols; ++c) {
     const int32_t k = dec.kind[c];
+    if (kIsMixed<Step> && k == kAbsentCol) {
+      ev[c] = 0u;
+      continue;
+    }
     ev[c] = k == kPacked ? (w >> dec.shift[c]) & dec.mask[c]
           : k == kSide   ? dec.side[c][side_row]
                          : ordinal;
   }
-  Step::apply(st, tid, ev);
+  if constexpr (kIsMixed<Step>) {  // the part whose range holds tid
+    static_for<0, kParts>([&](auto p) {
+      apply_part<decltype(p)::value>(dec, st, tid, ev);
+    });
+  } else {
+    Step::apply(st, tid, ev);
+  }
 }
 
 // Fold steps t in [t0, t1) of one lane straight from device memory: step t
@@ -372,8 +528,8 @@ __device__ __forceinline__ void fold_rows_global(const DecodeArgs& dec,
 
 // The step ids of the C interfaces, in the order of
 // fold_kernels.KERNEL_STEPS: 0 counter, 1 bank_account, 2 shopping_cart,
-// 3 saga. Returns f(Step{}) for the id's step functor, or
-// cudaErrorInvalidValue for an unknown id.
+// 3 saga, then 4 MixedStep (fold_kernels.MIXED_STEP_ID). Returns f(Step{})
+// for the id's step functor, or cudaErrorInvalidValue for an unknown id.
 template <class F>
 inline int with_step(int step, F&& f) {
   switch (step) {
@@ -381,6 +537,53 @@ inline int with_step(int step, F&& f) {
     case 1: return f(BankAccountStep{});
     case 2: return f(ShoppingCartStep{});
     case 3: return f(SagaStep{});
+    case 4: return f(MixedStep{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The wire bytes a step's kernels are built for: a combined spec of the four
+// families packs at most 13 bits (4 type bits, the counter's two 2-bit
+// fields, the saga's 5-bit step), so MixedStep is built for 1 and 2 bytes
+// only, which keeps its instantiations, the build's longest, to half
+template <class Step>
+constexpr int kWireBytes = 4;
+template <>
+constexpr int kWireBytes<MixedStep> = 2;
+
+// f(std::integral_constant<int, NB>{}) for the wire's byte count NB, or
+// cudaErrorInvalidValue past 4 or past kWireBytes<Step>
+template <class Step, class F>
+inline int with_wire_bytes(int nbytes, F&& f) {
+  switch (nbytes) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3:
+      if constexpr (kWireBytes<Step> >= 3) return f(std::integral_constant<int, 3>{});
+      break;
+    case 4:
+      if constexpr (kWireBytes<Step> >= 4) return f(std::integral_constant<int, 4>{});
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// MixedStep's part p (a step id 0-3): the union slot of each of its columns
+// and state fields, into cols[kMaxCols] and fields[kMaxState] (-1 past its
+// own), so the ctypes side can check its maps against these
+inline int part_map(int part, int* cols, int* fields) {
+  for (int c = 0; c < kMaxCols; ++c) cols[c] = -1;
+  for (int i = 0; i < kMaxState; ++i) fields[i] = -1;
+  auto fill = [&](auto p) {
+    using Part = MixedPart<decltype(p)::value>;
+    for (int c = 0; c < Part::Step::kCols; ++c) cols[c] = Part::col(c);
+    for (int i = 0; i < Part::Step::kState; ++i) fields[i] = Part::field(i);
+  };
+  switch (part) {
+    case 0: fill(std::integral_constant<int, 0>{}); return 0;
+    case 1: fill(std::integral_constant<int, 1>{}); return 0;
+    case 2: fill(std::integral_constant<int, 2>{}); return 0;
+    case 3: fill(std::integral_constant<int, 3>{}); return 0;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

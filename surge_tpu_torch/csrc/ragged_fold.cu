@@ -220,13 +220,10 @@ int launch(const SlabArgs* sa, const DecodeArgs* dec, const uint8_t* words,
   if (dec->n_cols != Step::kCols || sa->n_state != Step::kState) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  switch (nbytes) {
-    case 1: return launch_nb<Step, 1>(sa, dec, words, width, rows, paths, stream);
-    case 2: return launch_nb<Step, 2>(sa, dec, words, width, rows, paths, stream);
-    case 3: return launch_nb<Step, 3>(sa, dec, words, width, rows, paths, stream);
-    case 4: return launch_nb<Step, 4>(sa, dec, words, width, rows, paths, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return with_wire_bytes<Step>(nbytes, [&](auto nb) {
+    return launch_nb<Step, decltype(nb)::value>(sa, dec, words, width, rows,
+                                                paths, stream);
+  });
 }
 
 }  // namespace surge_k2
@@ -238,13 +235,19 @@ using surge_fold::SlabArgs;
 // keep external linkage
 extern "C" {
 
-// step ids, in the order of fold_kernels.KERNEL_STEPS (surge_fold::with_step)
+// step ids, in the order of fold_kernels.KERNEL_STEPS, then 4 for MixedStep
+// (surge_fold::with_step)
 int surge_ragged_fold_shape(int step, int* n_cols, int* n_state) {
   return surge_fold::step_shape(step, n_cols, n_state);
 }
 
 int surge_ragged_fold_struct_size(int which) {
   return surge_fold::struct_size(which);
+}
+
+// MixedStep's maps of part `part` (surge_fold::part_map)
+int surge_ragged_fold_part_map(int part, int* cols, int* fields) {
+  return surge_fold::part_map(part, cols, fields);
 }
 
 // one ragged refresh window: words u8 [rows, nbytes]; paths, when not null,

@@ -550,13 +550,10 @@ int launch_window(const SlabArgs* sa, const DecodeArgs* dec,
   if (dec->n_cols != Step::kCols || sa->n_state != Step::kState) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  switch (nbytes) {
-    case 1: return launch_window_nb<Step, 1>(sa, dec, words, width, paths, stream);
-    case 2: return launch_window_nb<Step, 2>(sa, dec, words, width, paths, stream);
-    case 3: return launch_window_nb<Step, 3>(sa, dec, words, width, paths, stream);
-    case 4: return launch_window_nb<Step, 4>(sa, dec, words, width, paths, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return with_wire_bytes<Step>(nbytes, [&](auto nb) {
+    return launch_window_nb<Step, decltype(nb)::value>(sa, dec, words, width,
+                                                       paths, stream);
+  });
 }
 
 template <class Step, int NB>
@@ -580,13 +577,9 @@ int launch_list(const ListArgs* la, const DecodeArgs* dec, const StateArgs* sa,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (la->n_blk == 0) return 0;
-  switch (la->nbytes) {
-    case 1: return launch_list<Step, 1>(la, dec, sa, stream);
-    case 2: return launch_list<Step, 2>(la, dec, sa, stream);
-    case 3: return launch_list<Step, 3>(la, dec, sa, stream);
-    case 4: return launch_list<Step, 4>(la, dec, sa, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return with_wire_bytes<Step>(la->nbytes, [&](auto nb) {
+    return launch_list<Step, decltype(nb)::value>(la, dec, sa, stream);
+  });
 }
 
 }  // namespace surge_k1
@@ -600,13 +593,19 @@ using surge_k1::ListArgs;
 // keep external linkage
 extern "C" {
 
-// step ids, in the order of fold_kernels.KERNEL_STEPS (surge_fold::with_step)
+// step ids, in the order of fold_kernels.KERNEL_STEPS, then 4 for MixedStep
+// (surge_fold::with_step)
 int surge_tile_scan_shape(int step, int* n_cols, int* n_state) {
   return surge_fold::step_shape(step, n_cols, n_state);
 }
 
 int surge_tile_scan_struct_size(int which) {
   return surge_fold::struct_size(which);
+}
+
+// MixedStep's maps of part `part` (surge_fold::part_map)
+int surge_tile_scan_part_map(int part, int* cols, int* fields) {
+  return surge_fold::part_map(part, cols, fields);
 }
 
 // one dense refresh window: words u8 [width, lanes, nbytes]; paths, when

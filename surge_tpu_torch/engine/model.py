@@ -103,6 +103,29 @@ class ReplayHandlers:
         return [self.by_type_id.get(tid, identity) for tid in range(num_types)]
 
 
+@dataclass(frozen=True)
+class KernelPart:
+    """One model family of a combined spec (surge_tpu_torch.replay.mixed), as
+    the fold kernels fold it: its ``kernel_step`` (None when the kernels have
+    no step for it) and its type ids ``[base, base + num_types)`` in the
+    combined registry. The step's columns and state fields are found in the
+    combined layout by name."""
+
+    model: str
+    step: Optional[str]
+    base: int
+    num_types: int
+
+
+@dataclass(frozen=True)
+class MixedKernelStep:
+    """The ``kernel_step`` of a combined spec: its parts, by ascending base.
+    The kernels fold it with their mixed step (C step id 4), which picks a
+    lane's part by the event's type id and applies that part's own step."""
+
+    parts: tuple[KernelPart, ...]
+
+
 @dataclass
 class ReplaySpec:
     """Everything the replay engine needs to batch-fold one model family.
@@ -111,9 +134,10 @@ class ReplaySpec:
     - ``handlers``: the torch form of ``handle_event``, split per event type.
     - ``init_record``: column values of the "empty" state (the ``None`` aggregate).
     - ``kernel_step``: the name of the model's step in the hand-written tile-scan
-      kernel (``surge_tpu_torch/csrc/tile_scan.cu``), e.g. ``"counter"``; None
-      for a model the kernel does not carry, which then folds only through the
-      plain scan (``surge.replay.tile-backend = xla``).
+      kernel (``surge_tpu_torch/csrc/tile_scan.cu``), e.g. ``"counter"``; a
+      :class:`MixedKernelStep` for a combined spec; None for a model the kernel
+      does not carry, which then folds only through the plain scan
+      (``surge.replay.tile-backend = xla``).
     - ``associative``: an optional ``AssociativeFold``
       (surge_tpu_torch.replay.seqpar) — with one, ``tile-backend = assoc``
       folds each tile by lift + an order-preserving tree of combines + one
@@ -123,7 +147,7 @@ class ReplaySpec:
     registry: SchemaRegistry
     handlers: ReplayHandlers
     init_record: Dict[str, Any] = field(default_factory=dict)
-    kernel_step: Optional[str] = None
+    kernel_step: "str | MixedKernelStep | None" = None
     associative: Any = None
 
     def init_state_tree(self) -> StateTree:

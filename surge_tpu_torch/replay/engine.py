@@ -51,7 +51,7 @@ from surge_tpu_torch.codec.tensor import (
 )
 from surge_tpu_torch.codec.wire import WireFormat, torch_dtype
 from surge_tpu_torch.config import Config, default_config
-from surge_tpu_torch.engine.model import ReplaySpec, StateTree
+from surge_tpu_torch.engine.model import MixedKernelStep, ReplaySpec, StateTree
 from surge_tpu_torch.replay import fold_kernels
 from surge_tpu_torch.replay.fold_kernels import _lane_range, _slab_index
 
@@ -66,31 +66,37 @@ def make_step_fn(spec: ReplaySpec, dispatch: str = "switch"
     - ``"switch"``: each handler runs on the lanes whose (clipped, real) type
       id selects it, and its results scatter back to those lanes.
     - ``"select"``: branchless — every handler runs on every lane and the
-      results mask-combine with ``where``.
+      results mask-combine with ``where``, field by field over the fields
+      the handler returns (the others carry through, as the reference's
+      normalized select gives them: a combined spec's handler touches only
+      its own family's few fields of the union).
     """
     num_types = spec.registry.num_event_types
     handlers = spec.handlers.ordered(num_types)
     state_fields = spec.registry.state.field_names
 
+    def pinned(v: Any, ref: torch.Tensor) -> torch.Tensor:
+        # a handler's value at the schema dtype (the carry's) and lane shape
+        v = torch.as_tensor(v, device=ref.device).to(ref.dtype)
+        return v if v.shape == ref.shape else v.expand(ref.shape)
+
     def normalize(new: StateTree, old: StateTree) -> StateTree:
         # handlers may return partial dicts and scalars; missing columns carry
         # through, and dtypes are pinned to the schema (the carry's dtypes)
-        out = {}
-        for name in state_fields:
-            ref = old[name]
-            v = torch.as_tensor(new.get(name, ref), device=ref.device).to(ref.dtype)
-            out[name] = v if v.shape == ref.shape else v.expand(ref.shape)
-        return out
+        return {name: pinned(new.get(name, old[name]), old[name])
+                for name in state_fields}
 
     if dispatch == "select":
         def step(state: StateTree, event: Mapping[str, Any]) -> StateTree:
             tid = event["type_id"]
             fields = {k: v for k, v in event.items() if k != "type_id"}
-            out = state
+            out = dict(state)
             for t, h in enumerate(handlers):
-                new = normalize(h(state, fields), state)
+                new = h(state, fields)
                 hit = tid == t
-                out = {k: torch.where(hit, new[k], out[k]) for k in out}
+                for k in state_fields:
+                    if k in new:
+                        out[k] = torch.where(hit, pinned(new[k], state[k]), out[k])
             return out
 
         return step
@@ -542,8 +548,9 @@ class ReplayEngine:
     def tile_backend(self) -> str:
         """The resolved tile backend: ``auto`` is the kernel (``pallas``) on
         CUDA and the plain scan (``xla``) on the CPU. The kernel needs the
-        spec's ``kernel_step``; without one this raises rather than run the
-        plain scan on the card. An explicit ``assoc`` (the tree fold,
+        spec's ``kernel_step`` (for a combined spec, one for every part:
+        the kernels' mixed step folds them); without one this raises rather
+        than run the plain scan on the card. An explicit ``assoc`` (the tree fold,
         :func:`_make_assoc_body`) needs the spec's ``associative`` and
         raises without one. Unlike the reference, ``auto`` never picks
         ``assoc``: on an NVIDIA H100 80GB HBM3 at 700 W the tree fold (torch
@@ -556,6 +563,11 @@ class ReplayEngine:
                 "the tile-scan kernel needs ReplaySpec.kernel_step, and this "
                 "spec has none; set surge.replay.tile-backend = xla to fold "
                 "with the plain scan")
+        if backend == "pallas" and isinstance(self.spec.kernel_step,
+                                              MixedKernelStep):
+            # raises naming the part without a kernel step, or the field
+            # whose promoted dtype the kernels do not carry
+            fold_kernels.mixed_parts(self.spec.kernel_step, self.spec.registry)
         if backend == "assoc" and self.spec.associative is None:
             raise ValueError(
                 "surge.replay.tile-backend = assoc requires the ReplaySpec to "

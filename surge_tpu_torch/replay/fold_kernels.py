@@ -26,6 +26,13 @@ flat row and, on a plan's first window, its admission aligned to lanes.
   row ``clamp(start[b] + t, 0, rows - 1)``, valid while ``t < count[b]``,
   what ``surge_tpu/replay/pallas_fold.py:make_ragged_fold`` computes.
 
+A combined spec (``surge_tpu_torch.replay.mixed``, its ``kernel_step`` a
+``MixedKernelStep``) folds through the kernels' mixed step, C step id
+``MIXED_STEP_ID``: one decode slot per name of ``MIXED_COLS`` and one state
+slot per name of ``MIXED_STATE`` (the four families' union, sorted; absent
+where the spec lacks a name), and each part's type-id range, so one launch
+folds lanes of several families. The plain versions fold any spec.
+
 On CPU tensors each wrapper runs its plain version
 (:func:`tile_fold_list_reference`, :func:`dense_window_reference`,
 :func:`ragged_window_reference`); on CUDA tensors it launches the
@@ -45,7 +52,7 @@ import torch
 
 from surge_tpu_torch.codec.schema import SchemaRegistry
 from surge_tpu_torch.codec.wire import DERIVE_ORDINAL, WireFormat, torch_dtype
-from surge_tpu_torch.engine.model import ReplaySpec
+from surge_tpu_torch.engine.model import MixedKernelStep, ReplaySpec
 
 #: the model steps the kernel carries, in the order of the C step ids:
 #: name -> (state fields, union columns), each in the schema's order
@@ -63,6 +70,15 @@ KERNEL_STEPS: dict[str, tuple[tuple[str, ...], tuple[str, ...]]] = {
              ("attempts", "c0", "c1", "c2", "c3", "def_id", "num_steps",
               "sequence_number", "step")),
 }
+
+#: the C step id of a combined spec's step (``MixedStep`` in
+#: csrc/fold_common.cuh), after the single-family steps
+MIXED_STEP_ID = len(KERNEL_STEPS)
+#: MixedStep's column and state slots: every kernel step's union columns and
+#: state fields, sorted by name (a combined spec's union is a subset of these,
+#: in the same order)
+MIXED_COLS = tuple(sorted({c for _, cols in KERNEL_STEPS.values() for c in cols}))
+MIXED_STATE = tuple(sorted({f for fields, _ in KERNEL_STEPS.values() for f in fields}))
 
 #: kernel launches per wrapper (reset by the caller; never by this module)
 LAUNCHES: dict[str, int] = {"tile_fold_list": 0, "dense_window": 0,
@@ -89,11 +105,17 @@ LIST_LANE_BLOCK = 256
 #: (``kNoopTileT`` in csrc/tile_scan.cu)
 _NOOP_TILE_T = np.int32(1 << 29)
 
-#: kMaxCols and kMaxState in csrc/fold_common.cuh
-_MAX_COLS = 12
-_MAX_STATE = 12
-_PACKED, _SIDE, _ORDINAL = 0, 1, 2
-_WORD, _BYTE = 0, 1
+#: kMaxCols, kMaxState and kParts in csrc/fold_common.cuh
+_MAX_COLS = 18
+_MAX_STATE = 20
+_PARTS = 4
+#: kWireBytes<MixedStep> in csrc/fold_common.cuh: the wire bytes the mixed
+#: step is built for
+_MIXED_WIRE_BYTES = 2
+#: ColKind and StateKind in csrc/fold_common.cuh (the absent kinds: a
+#: MixedStep slot that the combined spec lacks)
+_PACKED, _SIDE, _ORDINAL, _ABSENT_COL = 0, 1, 2, 3
+_WORD, _BYTE, _ABSENT_FIELD = 0, 1, 2
 _SIDE_DTYPES = (np.dtype(np.int32), np.dtype(np.float32))
 _STATE_KINDS = {np.dtype(np.int32): _WORD, np.dtype(np.float32): _WORD,
                 np.dtype(np.bool_): _BYTE}
@@ -106,7 +128,9 @@ class _DecodeArgs(ctypes.Structure):
                 ("kind", ctypes.c_int32 * _MAX_COLS),
                 ("shift", ctypes.c_int32 * _MAX_COLS),
                 ("mask", ctypes.c_uint32 * _MAX_COLS),
-                ("side", ctypes.c_void_p * _MAX_COLS)]
+                ("side", ctypes.c_void_p * _MAX_COLS),
+                ("part_base", ctypes.c_int32 * _PARTS),
+                ("part_types", ctypes.c_int32 * _PARTS)]
 
 
 class _StateArgs(ctypes.Structure):
@@ -121,6 +145,7 @@ class _SlabArgs(ctypes.Structure):
     # mirrors struct SlabArgs in csrc/fold_common.cuh
     _fields_ = [("n_state", ctypes.c_int32),
                 ("kind", ctypes.c_int32 * _MAX_STATE),
+                ("admit_row", ctypes.c_int32 * _MAX_STATE),
                 ("col", ctypes.c_void_p * _MAX_STATE),
                 ("ords", ctypes.c_void_p), ("table", ctypes.c_void_p),
                 ("capacity", ctypes.c_int32), ("lanes", ctypes.c_int32),
@@ -512,11 +537,17 @@ def _paths_ptr(paths: torch.Tensor | None, lanes: int, dev: torch.device) -> int
 def _slab_args(slab: Mapping[str, torch.Tensor], ords: torch.Tensor,
                table: torch.Tensor, spec: ReplaySpec) -> "_SlabArgs":
     """The slab, its ordinals and the lane table, for a window kernel."""
-    fields = spec.registry.state.fields
+    fields = _kernel_fields(spec)
+    rows = {f.name: LANE_ADMIT_VAL + i
+            for i, f in enumerate(spec.registry.state.fields)}
     sa = _SlabArgs()
     sa.n_state = len(fields)
     for i, f in enumerate(fields):
+        if f is None:
+            sa.kind[i] = _ABSENT_FIELD
+            continue
         sa.kind[i] = _STATE_KINDS[np.dtype(f.dtype)]
+        sa.admit_row[i] = rows[f.name]
         sa.col[i] = slab[f.name].data_ptr()
     sa.ords = ords.data_ptr()
     sa.table = table.data_ptr()
@@ -530,7 +561,7 @@ def _decode_with_sides(layout: "_DecodeArgs", sides: Mapping[str, torch.Tensor],
                        spec: ReplaySpec) -> "_DecodeArgs":
     """A per-call copy of the cached decode layout with the side pointers set."""
     dec = _DecodeArgs.from_buffer_copy(layout)
-    for c, name in enumerate(KERNEL_STEPS[spec.kernel_step][1]):
+    for c, name in enumerate(_kernel_cols(spec.kernel_step)):
         if dec.kind[c] == _SIDE:
             dec.side[c] = sides[name].data_ptr()
     return dec
@@ -540,25 +571,45 @@ def _state_args(carry: Mapping[str, torch.Tensor], out: Mapping[str, torch.Tenso
                 spec: ReplaySpec) -> "_StateArgs":
     """The state pointers: read from ``carry``, written to ``out`` (the same
     tensors for a fold in place)."""
-    fields = spec.registry.state.fields
+    fields = _kernel_fields(spec)
     sa = _StateArgs()
     sa.n_state = len(fields)
     for i, f in enumerate(fields):
+        if f is None:
+            sa.kind[i] = _ABSENT_FIELD
+            continue
         sa.kind[i] = _STATE_KINDS[np.dtype(f.dtype)]
         sa.in_[i] = carry[f.name].data_ptr()
         sa.out[i] = out[f.name].data_ptr()
     return sa
 
 
+def _kernel_cols(step) -> tuple[str, ...]:
+    """The union column of each decode slot of the kernel's step."""
+    return MIXED_COLS if isinstance(step, MixedKernelStep) else KERNEL_STEPS[step][1]
+
+
+def _kernel_fields(spec: ReplaySpec) -> tuple:
+    """The state field (a ``FieldSpec``) of each state slot of the kernel's
+    step; None for a MixedStep slot that the combined spec lacks."""
+    fields = spec.registry.state.fields
+    if not isinstance(spec.kernel_step, MixedKernelStep):
+        return fields
+    by_name = {f.name: f for f in fields}
+    return tuple(by_name.get(n) for n in MIXED_STATE)
+
+
 @functools.lru_cache(maxsize=64)
-def _decode_args(name: str | None, reg: SchemaRegistry, wire: WireFormat
-                 ) -> tuple[int, _DecodeArgs]:
+def _decode_args(name: "str | MixedKernelStep | None", reg: SchemaRegistry,
+                 wire: WireFormat) -> tuple[int, _DecodeArgs]:
     """The kernel's step id and decode arguments (side pointers unset) for
     ``wire``. Raises unless ``name`` is a kernel step whose schema ``reg``
-    matches and the arguments describe the wire's exact layout (its
-    ``layout_fingerprint()``). Cached per (step, registry, wire): the check
-    costs more host time than a launch, and registries are complete once
-    built."""
+    matches (for a combined spec, :func:`mixed_parts`) and the arguments
+    describe the wire's exact layout (its ``layout_fingerprint()``). Cached
+    per (step, registry, wire): the check costs more host time than a launch,
+    and registries are complete once built."""
+    if isinstance(name, MixedKernelStep):
+        return _mixed_decode_args(name, reg, wire)
     if name not in KERNEL_STEPS:
         raise ValueError(
             f"the tile-scan kernel has no step for kernel_step={name!r} "
@@ -575,6 +626,80 @@ def _decode_args(name: str | None, reg: SchemaRegistry, wire: WireFormat
     if tuple(union) != col_names:
         raise ValueError(f"kernel step {name!r} decodes columns {col_names}, "
                          f"the spec has {tuple(union)}")
+    return list(KERNEL_STEPS).index(name), _wire_layout(col_names, union, wire)
+
+
+@functools.lru_cache(maxsize=64)
+def mixed_parts(step: MixedKernelStep, reg: SchemaRegistry) -> dict:
+    """The parts of a combined spec by their kernel step, checked by name:
+    every part has a step the kernel carries (once), its type ids lie in the
+    registry in ascending, disjoint ranges, its events' columns are its
+    step's, the union's state fields are its steps' and every one is a field
+    the kernel carries (a promoted dtype, such as int32 with float32, is
+    not). Raises a ValueError naming the part or the field; cached per
+    (step, registry)."""
+    by_step, end, fields = {}, 0, set()
+    for part in step.parts:
+        if part.step is None:
+            raise ValueError(
+                f"the tile-scan kernel needs a kernel_step for every part of a "
+                f"combined spec, and part {part.model!r} has none; use "
+                f"surge.replay.tile-backend = xla")
+        if part.step not in KERNEL_STEPS:
+            raise ValueError(f"part {part.model!r}: the tile-scan kernel has no "
+                             f"step {part.step!r} (known: {sorted(KERNEL_STEPS)})")
+        if part.step in by_step:
+            raise ValueError(f"parts {by_step[part.step].model!r} and "
+                             f"{part.model!r} both fold with step {part.step!r}")
+        if part.base < end or part.num_types < 0:
+            raise ValueError(f"part {part.model!r}: type ids from {part.base} "
+                             f"overlap the previous part's (to {end})")
+        end = part.base + part.num_types
+        state_names, col_names = KERNEL_STEPS[part.step]
+        cols = sorted({f.name for s in reg.event_schemas
+                       if part.base <= s.type_id < end for f in s.fields})
+        if tuple(cols) != col_names:
+            raise ValueError(f"part {part.model!r}: the {part.step!r} step "
+                             f"decodes columns {col_names}, its events have "
+                             f"{tuple(cols)}")
+        fields.update(state_names)
+        by_step[part.step] = part
+    if end > reg.num_event_types:
+        raise ValueError(f"the parts' type ids run to {end}, the registry has "
+                         f"{reg.num_event_types}")
+    if set(reg.state.field_names) != fields:
+        raise ValueError(f"the parts' steps fold state {sorted(fields)}, the "
+                         f"combined spec has {sorted(reg.state.field_names)}")
+    for f in reg.state.fields:
+        if np.dtype(f.dtype) not in _STATE_KINDS:
+            raise ValueError(f"state field {f.name!r}: the kernel carries "
+                             f"i32/f32/bool, not {f.dtype}")
+    return by_step
+
+
+def _mixed_decode_args(step: MixedKernelStep, reg: SchemaRegistry,
+                       wire: WireFormat) -> tuple[int, _DecodeArgs]:
+    """MixedStep's decode arguments: one slot per name of ``MIXED_COLS``
+    (absent where the union lacks it) and each part's type-id range."""
+    by_step = mixed_parts(step, reg)
+    if wire.nbytes > _MIXED_WIRE_BYTES:
+        raise ValueError(f"the mixed step reads wires of at most "
+                         f"{_MIXED_WIRE_BYTES} bytes an event, this one has "
+                         f"{wire.nbytes}")
+    union = {f.name: f for f in reg.union_columns()}
+    dec = _wire_layout(MIXED_COLS, union, wire)
+    for p, name in enumerate(KERNEL_STEPS):
+        if name in by_step:
+            dec.part_base[p] = by_step[name].base
+            dec.part_types[p] = by_step[name].num_types
+    return MIXED_STEP_ID, dec
+
+
+def _wire_layout(col_names, union, wire: WireFormat) -> _DecodeArgs:
+    """The decode arguments of decode slots ``col_names`` (a name the union
+    ``{name: FieldSpec}`` lacks is an absent slot): each column packed,
+    side or the derived ordinal, as ``wire`` lays it out; raises unless they
+    describe the wire's exact layout (its ``layout_fingerprint()``)."""
     packed = {pf.name: pf for pf in wire.packed_fields}
     sides = {f.name for f in wire.side_fields}
     dec = _DecodeArgs()
@@ -582,6 +707,9 @@ def _decode_args(name: str | None, reg: SchemaRegistry, wire: WireFormat
     dec.num_types = wire.num_types
     dec.n_cols = len(col_names)
     for c, col in enumerate(col_names):
+        if col not in union:
+            dec.kind[c] = _ABSENT_COL
+            continue
         dt = np.dtype(union[col].dtype)
         if col in packed:
             if dt != np.dtype(np.int32):
@@ -604,7 +732,7 @@ def _decode_args(name: str | None, reg: SchemaRegistry, wire: WireFormat
         raise ValueError(
             f"kernel decode arguments describe {_describe(dec, col_names, union)}, "
             f"the wire is {wire.layout_fingerprint()}")
-    return list(KERNEL_STEPS).index(name), dec
+    return dec
 
 
 def _describe(dec: _DecodeArgs, col_names, union) -> dict:
@@ -752,13 +880,35 @@ def _library(name: str) -> ctypes.CDLL:
     shape.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                       ctypes.POINTER(ctypes.c_int)]
     shape.restype = ctypes.c_int
-    for step_id, (step, (state, cols)) in enumerate(KERNEL_STEPS.items()):
+    part_map = getattr(lib, f"surge_{name}_part_map")
+    part_map.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                         ctypes.POINTER(ctypes.c_int)]
+    part_map.restype = ctypes.c_int
+    steps = list(KERNEL_STEPS.items()) + [
+        ("mixed", (MIXED_STATE, MIXED_COLS))]
+    for step_id, (step, (state, cols)) in enumerate(steps):
         n_cols, n_state = ctypes.c_int(), ctypes.c_int()
         if (shape(step_id, ctypes.byref(n_cols), ctypes.byref(n_state)) != 0
                 or (n_cols.value, n_state.value) != (len(cols), len(state))):
             raise RuntimeError(f"{name} step {step_id} does not fold {step!r} "
                                f"({len(cols)} columns, {len(state)} state fields)")
+        if step_id == MIXED_STEP_ID:
+            continue
+        c_cols, c_fields = (ctypes.c_int * _MAX_COLS)(), (ctypes.c_int * _MAX_STATE)()
+        if part_map(step_id, c_cols, c_fields) != 0 or \
+                (list(c_cols[:len(cols)]), list(c_fields[:len(state)])) != \
+                mixed_part_map(step):
+            raise RuntimeError(f"{name}: MixedStep's part {step_id} does not "
+                               f"map {step!r} onto MIXED_COLS and MIXED_STATE")
     return lib
+
+
+def mixed_part_map(step: str) -> tuple[list[int], list[int]]:
+    """MixedStep's slot of each column and state field of kernel step
+    ``step`` (``MixedPart`` in csrc/fold_common.cuh)."""
+    state, cols = KERNEL_STEPS[step]
+    return ([MIXED_COLS.index(c) for c in cols],
+            [MIXED_STATE.index(f) for f in state])
 
 
 def load() -> None:
